@@ -6,8 +6,11 @@ against its plain torch version (at every frame count the main path gives
 it) and against a float64 oracle, drives the port's main path
 (``totton-stream-torch`` file mode, 16x / 80001 taps, stereo s16, the
 bundled filter) through the kernel, times kernel and plain version and
-each of the kernel's four launches, and prints one JSON line per kernel and
-a final status line:
+each of the kernel's four launches, serves concurrent client streams
+through the port's ``StreamServer`` (16x/80k f32 with a live filter swap;
+the 16x/8k bank with device PCM and s16 clients) against the offline
+kernel output, and prints one JSON line per kernel and a final status
+line:
 
   {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": N}}
 
@@ -39,8 +42,12 @@ REL_TOL = 1e-5       # kernel vs plain on the card (fp32, other sum order)
 SNR_GATE_DB = 125.0  # vs the float64 oracle (bench.py's gate)
 # Frame counts the main path hands the kernel besides its full 512-block
 # stereo dispatch (1024 frames, checked in phase 6): the ragged 32/8/1-block
-# tail dispatches (64, 16, 2), one off every tile edge (18), a round 128.
-PARITY_FRAMES = (2, 16, 18, 64, 128)
+# tail dispatches (64, 16, 2), one off every tile edge (18), a round 128,
+# and the serve steps' rows x blocks (8 stereo slots at 2 and 16 blocks:
+# 32, 256; 16 slots at 16 blocks: 512).
+PARITY_FRAMES = (2, 16, 18, 32, 64, 128, 256, 512)
+RATE = 44100
+SERVE_FADE = 4096    # output frames of the live swap's crossfade
 LAUNCH_NAMES = {"FwdStage1Store": "F1", "FwdStage2Store": "F2",
                 "InvStage1Store": "I1", "OutStore": "I2"}
 
@@ -118,6 +125,299 @@ def cuda_time_ms(fn, warmup: int = 2, reps: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return sorted(times)[len(times) // 2]
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_clients(port, signals, fmt=None, split=None, swap=None):
+    """Stream each [2, n] signal through its own ServeClient, all connected
+    at once, each sent in 1 s bursts from a pump thread while its reply is
+    read. A stream i in ``split`` (i -> input frames) holds after that many
+    frames until ``swap()`` has run; swap() runs once every held stream has
+    read its first part's output and every other stream has finished.
+    Returns (outputs, wall seconds from connect to the last reply byte)."""
+    import threading
+
+    import numpy as np
+
+    from totton_tpu.io.serve_client import ServeClient
+
+    split = split or {}
+    outs = [None] * len(signals)
+    errors = []
+    gate = threading.Event()
+    first = {i: threading.Event() for i in split}
+
+    def stream(i, x):
+        try:
+            with ServeClient(f"tcp://127.0.0.1:{port}", x.shape[0], RATE,
+                             fmt=fmt) as c:
+                cut = split.get(i, x.shape[1])
+
+                def pump():
+                    for a, b in ((0, cut), (cut, x.shape[1])):
+                        if a == cut and i in split:
+                            gate.wait(timeout=300)
+                        for j in range(a, b, RATE):
+                            c.send(x[:, j:min(j + RATE, b)])
+                    c.end_input()
+
+                t = threading.Thread(target=pump)
+                t.start()
+                parts, got = [], 0
+                while (y := c.read_frames()) is not None:
+                    parts.append(y)
+                    got += y.shape[1]
+                    if i in first and got >= cut * c.ratio:
+                        first[i].set()
+                t.join(timeout=300)
+                outs[i] = np.concatenate(parts, axis=1)
+        except Exception as e:  # raised in the caller
+            errors.append((i, e))
+            for ev in first.values():
+                ev.set()
+            gate.set()
+
+    threads = [threading.Thread(target=stream, args=(i, x))
+               for i, x in enumerate(signals)]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for i, t in enumerate(threads):
+        if i not in split:
+            t.join(timeout=300)
+    for ev in first.values():
+        ev.wait(timeout=300)
+    if split and not errors:
+        swap()
+    gate.set()
+    for t in threads:
+        t.join(timeout=300)
+    wall = time.monotonic() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"serve clients failed: {errors}")
+    return outs, wall
+
+
+def serve_figures(server, wall: float) -> str:
+    """steps_by_shape, avg_step_drain_ms, aggregate output samples/s and
+    each served slot's latency p50/p95 (ms), as one line."""
+    j = server.stats.to_json(0, [])
+    lat = [server._slot_status(s)["latency_ms"] for s in server.slots
+           if s.lat_ms]
+    lat_s = ", ".join(f"{d['p50']:.2f}/{d['p95']:.2f}" for d in lat)
+    rate = j["frames_out"] * server.channels / wall
+    return (f"steps_by_shape {json.dumps(j['steps_by_shape'])}, "
+            f"avg_step_drain_ms {j['avg_step_drain_ms']}, aggregate "
+            f"{rate / 1e6:.2f} M output samples/s over {wall:.2f} s, "
+            f"latency p50/p95 ms by stream [{lat_s}]")
+
+
+def step_costs_ms(server, shapes) -> list[str]:
+    """Host ms of one whole serve step (pinned upload, the kernel, the
+    pinned download and its event wait) at each (slots, blocks) shape,
+    run three times in a row after emptying torch's device and pinned-host
+    caches: the first time a shape occurs against the steady cost; and
+    the step's peak device memory above what was allocated before it."""
+    import numpy as np
+    import torch
+
+    from totton_tpu_torch.engine.upsampler import download, fetch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    host_empty = getattr(torch._C, "_host_emptyCache", None)
+    if host_empty is not None:
+        host_empty()
+    cfg = server.config
+    out = []
+    for width, k in shapes:
+        rows = width * server.channels
+        times = []
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        for _ in range(3):
+            t0 = time.perf_counter()
+            tj = server._to_device(np.zeros((rows, cfg.halo_in), np.float32))
+            xj = server._to_device(
+                np.zeros((rows, k * cfg.block_in), np.float32))
+            fetch(download(server._step(tj, xj, server._bundle)[0]))
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        out.append(f"{width}x{k}: " + "/".join(f"{t:.1f}" for t in times)
+                   + f" ms, peak {peak:.0f} MiB")
+    return out
+
+
+def seeded_signal(seconds: float, seed: int):
+    """[2, n] float32 at RATE: two tones and a little seeded noise."""
+    import numpy as np
+
+    r = np.random.default_rng(seed)
+    t = np.arange(int(seconds * RATE)) / RATE
+    f0 = 300.0 + 170.0 * seed
+    tones = np.stack([0.4 * np.sin(2 * np.pi * f0 * t),
+                      0.3 * np.sin(2 * np.pi * 1.5 * f0 * t)])
+    return (tones + r.normal(size=tones.shape) * 0.02).astype(np.float32)
+
+
+def rel_err(y, ref) -> float:
+    import numpy as np
+
+    if y.shape != ref.shape:
+        raise AssertionError(f"reply shape {y.shape} != {ref.shape}")
+    return float(np.abs(y - ref).max() / np.abs(ref).max())
+
+
+def serve_phase(card, lf, lin, device, seconds=(2.0, 3.5, 5.0, 7.3),
+                held_blocks=20):
+    """Serve one f32 stream per entry of ``seconds`` at once on an 8-slot
+    StreamServer, each sent in bursts (so steps take several blocks), and
+    swap to ``lin`` by load_filter while streams 2 and 3 are live. Gates:
+    streams 0-1 equal the offline upsample_signal (same kernel) and pass
+    validate_audio; streams 2-3 equal the crossfade model; fused_frames
+    launched; the server did not fail; no jax. Returns (launches, the
+    stopped server)."""
+    import numpy as np
+
+    from totton_tpu.testing.validate_output import validate_audio
+    from totton_tpu_torch.engine.upsampler import upsample_signal
+    from totton_tpu_torch.ops import fused_frames as ff
+    from totton_tpu_torch.serve import StreamServer
+
+    port = free_port()
+    ff.LAUNCHES = 0
+    server = StreamServer(lf, f"tcp-listen://127.0.0.1:{port}", RATE,
+                          max_streams=8, channels=2,
+                          swap_fade_frames=SERVE_FADE, device=device)
+    t0 = time.monotonic()
+    server.start()
+    warm_s = time.monotonic() - t0
+    cfg = server.config
+    sigs = [seeded_signal(s, i) for i, s in enumerate(seconds)]
+    held = held_blocks * cfg.block_in  # input frames before the swap
+
+    def swap():
+        server.load_filter(lin)
+        deadline = time.monotonic() + 60
+        while server.stats.spectrum_swaps < 1:
+            if time.monotonic() > deadline:
+                raise AssertionError("the live swap never applied")
+            time.sleep(0.01)
+
+    outs, wall = run_clients(port, sigs, split={2: held, 3: held}, swap=swap)
+    server.stop()
+    launches = ff.LAUNCHES
+    figures = serve_figures(server, wall)
+    if server.failed or (device == "cuda" and launches < 1):
+        raise AssertionError(f"serve failed={server.failed}, fused_frames "
+                             f"launches {launches}")
+    rels = []
+    for i, (x, y) in enumerate(zip(sigs, outs)):
+        ref = upsample_signal(x, lf, device=device)
+        if i < 2:
+            report = validate_audio(x, y, output_ratio=cfg.ratio)
+            if not report["passed"]:
+                raise AssertionError(f"stream {i} failed validate_audio: "
+                                     f"{report}")
+        else:
+            # The fade starts at this stream's first output sample after
+            # the held part (tests/test_serve_control.py fade model).
+            new = upsample_signal(x, lin, device=device)
+            p = held * cfg.ratio
+            n = min(SERVE_FADE, ref.shape[1] - p)
+            ramp = np.arange(n, dtype=np.float32) / SERVE_FADE
+            expect = new.copy()
+            expect[:, :p] = ref[:, :p]
+            expect[:, p:p + n] = (ref[:, p:p + n] * (1.0 - ramp)
+                                  + new[:, p:p + n] * ramp)
+            ref = expect
+        rels.append(rel_err(y, ref))
+    if not max(rels) < REL_TOL:
+        raise AssertionError(f"serve replies off their references: {rels}")
+    shapes = server.stats.steps_by_shape
+    if not (len(shapes) >= 2
+            and any(int(key.split("x")[1]) > 1 for key in shapes)):
+        raise AssertionError(f"no multi-block step or one shape only: "
+                             f"{shapes}")
+    if "jax" in sys.modules:
+        raise AssertionError("jax was imported")
+    phase("serve", f"{lf.sidecar.taps} taps {cfg.ratio}x, 8 slots, "
+          f"{len(sigs)} f32 streams ({'/'.join(f'{s:g}' for s in seconds)}"
+          f" s), live swap to linear phase under streams 2-3: rel vs "
+          f"offline kernel output (0-1) and fade model (2-3) "
+          f"{', '.join(f'{r:.2e}' for r in rels)} (limit {REL_TOL:g}); "
+          f"validate_audio passed (0-1); fused_frames launches {launches}; "
+          f"start {warm_s:.2f} s; {figures} on {card}")
+    return launches, server
+
+
+def serve_low_phase(card, low, device, n_streams=12, seconds=2.0) -> int:
+    """Serve ``n_streams`` s16 streams at once on a 16-slot device-PCM
+    StreamServer (both the 8- and the 16-slot widths run). Gates: every
+    reply within one LSB of float_to_pcm(offline upsample_signal);
+    fused_frames launched; the server did not fail; no jax. Returns the
+    launches."""
+    import numpy as np
+
+    from totton_tpu.io.pcm import (
+        PcmFormat,
+        deinterleave,
+        float_to_pcm,
+        interleave,
+        pcm_to_float,
+    )
+    from totton_tpu_torch.engine.upsampler import upsample_signal
+    from totton_tpu_torch.ops import fused_frames as ff
+    from totton_tpu_torch.serve import StreamServer
+
+    s16 = PcmFormat.S16_LE
+
+    def s16_roundtrip(a):
+        return deinterleave(pcm_to_float(float_to_pcm(interleave(a), s16),
+                                         s16), a.shape[0])
+
+    port = free_port()
+    ff.LAUNCHES = 0
+    server = StreamServer(low, f"tcp-listen://127.0.0.1:{port}", RATE,
+                          max_streams=16, channels=2, device_pcm=True,
+                          device=device)
+    t0 = time.monotonic()
+    server.start()
+    warm_s = time.monotonic() - t0
+    sigs = [seeded_signal(seconds, 10 + i) for i in range(n_streams)]
+    outs, wall = run_clients(port, sigs, fmt=s16)
+    server.stop()
+    launches = ff.LAUNCHES
+    figures = serve_figures(server, wall)
+    if server.failed or (device == "cuda" and launches < 1):
+        raise AssertionError(f"serve-low failed={server.failed}, "
+                             f"fused_frames launches {launches}")
+    lsb = 0.0
+    for x, y in zip(sigs, outs):
+        ref = s16_roundtrip(upsample_signal(s16_roundtrip(x), low,
+                                            device=device))
+        if y.shape != ref.shape:
+            raise AssertionError(f"reply shape {y.shape} != {ref.shape}")
+        lsb = max(lsb, float(np.abs(y - ref).max()) * 32768)
+    if not lsb <= 1.0:
+        raise AssertionError(f"serve-low off by {lsb} LSB")
+    if not any(key.startswith("16x") for key in server.stats.steps_by_shape):
+        raise AssertionError("the 16-slot width never ran")
+    if "jax" in sys.modules:
+        raise AssertionError("jax was imported")
+    phase("serve-low", f"{low.sidecar.taps} taps {server.config.ratio}x, "
+          f"16 slots, device PCM, {n_streams} s16 streams of {seconds:g} "
+          f"s: max {lsb:.0f} LSB vs float_to_pcm(offline kernel output) "
+          f"(limit 1); fused_frames launches {launches}; start "
+          f"{warm_s:.2f} s; {figures} on {card}")
+    return launches
 
 
 def main() -> int:
@@ -294,12 +594,30 @@ def main() -> int:
               f"({ff.flops_per_frame(cfg) * n / total / 1e9:.1f} TFLOP/s) "
               f"on {card}")
 
+    # 8. The serve plane at 16x/80k: four concurrent f32 streams on an
+    # 8-slot server, a live swap to the linear-phase filter under two.
+    lin = load_filter(os.path.join(FILTER_DIR,
+                                   "filter_44k_16x_80000_linear_phase.json"))
+    serve_launches, server = serve_phase(card, lf, lin, "cuda")
+    costs = step_costs_ms(server, [(8, 1), (8, 16), (16, 16), (64, 16)])
+    phase("serve-shapes", f"16x/80k one serve step, host ms of the first/"
+          f"second/third run after emptying the caches, and its device "
+          f"memory peak: {'; '.join(costs)} on {card}")
+    del server
+    torch.cuda.empty_cache()
+
+    # 9. The low-latency bank (16x/8k), device PCM, twelve concurrent 2 s
+    # s16 streams on 16 slots (so the 8- and 16-slot widths both run).
+    low = load_filter(os.path.join(FILTER_DIR,
+                                   "filter_44k_16x_8000_min_phase.json"))
+    low_launches = serve_low_phase(card, low, "cuda")
+
     print(json.dumps({"kernels": [{
         "name": "fused_frames",
         "route": "cuda",
         "source": "totton_tpu_torch/csrc/fused_frames.cu",
         "replaces": "totton_tpu/experimental/pallas_kernels.py:284",
-        "launches": launches,
+        "launches": launches + serve_launches + low_launches,
         "max_abs_err": main_err,
         "ms": timings[512][0],
         "plain_ms": timings[512][1],

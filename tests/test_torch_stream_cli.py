@@ -109,6 +109,7 @@ def test_port_imports_no_jax(tmp_path):
     code = (
         "import sys, numpy as np, torch\n"
         "import totton_tpu_torch.cli.stream, totton_tpu_torch.io.stream\n"
+        "import totton_tpu_torch.serve, totton_tpu_torch.cli.serve\n"
         "from totton_tpu_torch.ops import overlap_save as o, fused_frames as f\n"
         "cfg = o.OverlapSaveConfig(257, 2048, 1792, 4)\n"
         "b = o.fold_bundle(o.filter_spectrum(np.ones(257), 2048), cfg)\n"

@@ -4,8 +4,9 @@ The JAX package (``totton_tpu``) stays the reference; this package computes
 the same functions with torch tensors and, on a CUDA device, runs the frame
 computation through hand-written kernels (``totton_tpu_torch/csrc``). It
 never imports jax. The framework-free host modules of the JAX package
-(``filters/sidecar``, ``io/{pcm,devices,wav,ring_buffer}``,
-``control/wiring``, ``utils/profiling``, ``testing``) are reused as they are.
+(``filters/sidecar``, ``io/{pcm,devices,wav,ring_buffer,sockets}``,
+``eq/{apo,biquad}``, ``control``, ``utils``, ``testing``) are reused as they
+are.
 
 The signal path is float32 throughout and gated at > 125 dB against a
 float64 oracle, so TF32 is switched off for every matmul on import.

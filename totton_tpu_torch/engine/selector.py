@@ -1,8 +1,9 @@
 """Filter artifact selection (a copy of ``totton_tpu.engine.selector``).
 
 Carried as a copy because importing it from the JAX package loads jax:
-``totton_tpu/engine/__init__.py`` imports the JAX upsampler. Drop the copy
-once that package's imports are lazy.
+``totton_tpu/engine/__init__.py`` imports the JAX upsampler. The copy stays:
+the JAX package is the frozen reference, so its imports will not become
+lazy. ``tests/test_torch_copies.py`` holds it equal to the reference.
 
 Behavioral parity with the reference's ResolveFilterPath
 (src/alsa/alsa_filter_selector.cpp:8-108): explicit path wins; otherwise a

@@ -32,6 +32,37 @@ from totton_tpu_torch.ops.overlap_save import (
 )
 
 
+def upload(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host -> device: through pinned memory and non-blocking on CUDA;
+    on the CPU the tensor shares the array's memory."""
+    t = torch.from_numpy(x)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+def download(y: torch.Tensor):
+    """Queue y's device->host copy into pinned memory and record an event
+    after it; returns the (host tensor, event) handle for ``fetch``. A
+    CPU tensor is its own host copy (event None)."""
+    if y.device.type != "cuda":
+        return y, None
+    host = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
+    host.copy_(y, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
+
+
+def fetch(handle) -> np.ndarray:
+    """Wait for a ``download`` (its event only, never the whole device)
+    and return the host array (a view of the pinned buffer)."""
+    host, event = handle
+    if event is not None:
+        event.synchronize()
+    return host.numpy()
+
+
 def _fade_width_blocks(n: int, block_size: int) -> int:
     """Dispatch width (in blocks) for a fade window of n output samples:
     ceil(n / block_size) rounded up to a power of two, so fade dispatches
@@ -198,22 +229,6 @@ class StreamingUpsampler:
 
     # -- processing -------------------------------------------------------
 
-    def _upload(self, x: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(x)
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
-
-    def _download(self, y: torch.Tensor):
-        """Queue the device->host copy; returns (host tensor, event)."""
-        if self.device.type != "cuda":
-            return y, None
-        host = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
-        host.copy_(y, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
-        return host, event
-
     def _quantize_device(self, y: torch.Tensor) -> torch.Tensor:
         if self._pcm_dither:
             self._pcm_counter += 1
@@ -238,7 +253,7 @@ class StreamingUpsampler:
                     f"of block_input_frames {self.config.block_in}"
                 )
             tail_before = self._tail
-            xt = self._upload(x)
+            xt = upload(x, self.device)
             y, self._tail = self._step(tail_before, xt, self._bundle)
             fade = None
             if self._fade_from is not None:
@@ -256,29 +271,26 @@ class StreamingUpsampler:
                     self._fade_from)
                 ramp = (self._fade_pos
                         + np.arange(n, dtype=np.float32)) / total
-                fade = (self._download(y_old), ramp, n)
+                fade = (download(y_old), ramp, n)
                 self._fade_pos += n
                 if self._fade_pos >= total:
                     self._fade_from = None
                     self._fade_pos = 0
             if self.device_pcm is not None and fade is None:
                 y = self._quantize_device(y)
-            return self._download(y), fade
+            return download(y), fade
 
     def fetch(self, handle) -> np.ndarray:
         """Wait for a dispatched step's output and return it on the host.
         Fetch in dispatch order: the host dither twin and the fade ramps
         are stateful in that order."""
-        (y, event), fade = handle
-        if event is not None:
-            event.synchronize()
+        y_handle, fade = handle
+        y = fetch(y_handle)
         if fade is None:
-            return y.numpy()
-        (y_old, event_old), ramp, n = fade
-        if event_old is not None:
-            event_old.synchronize()
-        y = y.numpy().copy()
-        y[:, :n] = (y_old.numpy()[:, :n] * (1.0 - ramp) + y[:, :n] * ramp)
+            return y
+        old_handle, ramp, n = fade
+        y = y.copy()
+        y[:, :n] = fetch(old_handle)[:, :n] * (1.0 - ramp) + y[:, :n] * ramp
         if self.device_pcm is not None:
             from totton_tpu.io.pcm import quantize_s16_host
 

@@ -5,7 +5,9 @@ and ``StreamSession`` (file mode and the synchronous live loop), carried
 because that module imports the JAX engine at its top and so loads jax.
 It duck-types its engine, so it drives the port's
 ``engine.upsampler.StreamingUpsampler`` unchanged. ``ThreadedStreamSession``
-is not ported yet. Drop the copy once the JAX package's imports are lazy.
+is not ported yet. The copy stays: the JAX package is the frozen reference,
+so its imports will not become lazy. ``tests/test_torch_copies.py`` holds
+the copy to the reference outside its listed seams.
 
 Period-sized reads are decoupled from filter-block-sized dispatches by
 ring buffers; offline sources accumulate deep dispatches
