@@ -9,8 +9,12 @@ bundled filter) through the kernel, times kernel and plain version and
 each of the kernel's four launches, serves concurrent client streams
 through the port's ``StreamServer`` (16x/80k f32 with a live filter swap;
 the 16x/8k bank with device PCM and s16 clients) against the offline
-kernel output, and prints one JSON line per kernel and a final status
-line:
+kernel output, runs the kernel's ratio-1 branch through the CLI's EQ-only
+mode (against the same command on the CPU), the threaded session, the
+crossfeed chain (against a float64 2x2 convolution) and the live path (a
+real-time socket sender, ``--threaded``, the in-process control endpoint
+driven by a ``DaemonClient``), and prints one JSON line per kernel and a
+final status line:
 
   {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": N}}
 
@@ -420,6 +424,440 @@ def serve_low_phase(card, low, device, n_streams=12, seconds=2.0) -> int:
     return launches
 
 
+EQ_PROFILE = ("Preamp: -5 dB\n"
+              "Filter 1: ON PK Fc 1000 Hz Gain 3 dB Q 1.0\n"
+              "Filter 2: ON LSC Fc 105 Hz Gain 4 dB Q 0.7\n"
+              "Filter 3: ON HSC Fc 8000 Hz Gain -2 dB Q 0.7\n")
+
+
+def write_profile(work: str, name: str = "eq.txt") -> str:
+    """EQ_PROFILE written into ``work``; returns its path."""
+    path = os.path.join(work, name)
+    with open(path, "w") as f:
+        f.write(EQ_PROFILE)
+    return path
+
+
+def no_jax() -> None:
+    if "jax" in sys.modules:
+        raise AssertionError("jax was imported")
+
+
+def run_cli(args, capture=False):
+    """totton-stream-torch in this process (so the kernel's launch count
+    sees it); returns (exit code, launches, its stderr if ``capture``)."""
+    import contextlib
+    import io
+
+    from totton_tpu_torch.cli import stream as stream_cli
+    from totton_tpu_torch.ops import fused_frames as ff
+
+    err = io.StringIO()
+    ff.LAUNCHES = 0
+    with contextlib.redirect_stderr(err) if capture else contextlib.nullcontext():
+        rc = stream_cli.main(args)
+    launches = ff.LAUNCHES
+    return rc, launches, err.getvalue()
+
+
+def max_lsb(a, b) -> float:
+    import numpy as np
+
+    if a.shape != b.shape:
+        raise AssertionError(f"shape {a.shape} != {b.shape}")
+    return float(np.abs(np.round(a * 32768) - np.round(b * 32768)).max())
+
+
+def ratio1_states(device, profile_path):
+    """(label, cfg, bundle) of the two ratio-1 geometries the kernel's
+    halves branch runs: (129, 1024, 1) with a seeded filter, and the CLI's
+    identity geometry (1025, 4096, 1) with an APO EQ baked in."""
+    import numpy as np
+
+    from totton_tpu_torch.eq import resolve_eq_response
+    from totton_tpu_torch.ops import overlap_save as osv
+
+    rng = np.random.default_rng(1)
+    out = []
+    for taps, fft in ((129, 1024), (1025, 4096)):
+        cfg = osv.OverlapSaveConfig(taps, fft, fft - taps + 1, 1)
+        if taps == 129:
+            h, eq, label = (rng.normal(size=taps)
+                            * np.exp(-np.arange(taps) / 20.0)), None, ""
+        else:
+            h = np.zeros(taps)
+            h[0] = 1.0
+            eq, _ = resolve_eq_response(profile_path, None, fft, RATE)
+            label = " identity + APO EQ"
+        spec = osv.filter_spectrum(h, fft, eq, device=device)
+        out.append((f"ratio 1 ({taps}, {fft}){label}", cfg,
+                    osv.fold_bundle(spec, cfg)))
+    return out
+
+
+def ratio1_phase(card, work, device="cuda", seconds=40.0):
+    """totton-stream-torch --ratio 1 --eq-profile on ``device`` against the
+    same command on the CPU (<= 1 LSB), then kernel vs plain timed at a
+    512-block ratio-1 stereo dispatch. Returns the launches."""
+    import numpy as np
+    import torch
+
+    from totton_tpu.io.wav import read_wav, write_wav
+    from totton_tpu.testing.signals import sine
+    from totton_tpu_torch.ops import fused_frames as ff
+    from totton_tpu_torch.ops import overlap_save as osv
+
+    profile = write_profile(work)
+    x = sine(1000.0, seconds, RATE, amplitude=0.5, channels=2)
+    x[1] = sine(220.0, seconds, RATE, amplitude=0.4, channels=1)[0]
+    in_path = os.path.join(work, "r1_in.wav")
+    write_wav(in_path, x, RATE)
+    outs, launches, walls = {}, 0, {}
+    for dev in (device, "cpu"):
+        path = os.path.join(work, f"r1_{dev}.wav")
+        t0 = time.monotonic()
+        rc, n, _ = run_cli(["--in", in_path, "--out", path, "--ratio", "1",
+                            "--eq-profile", profile, "--format", "s16",
+                            "--device", dev])
+        walls[dev] = time.monotonic() - t0
+        if rc != 0:
+            raise AssertionError(f"--ratio 1 on {dev} exited {rc}")
+        if dev == device:
+            launches = n
+        outs[dev] = read_wav(path)[0]
+    lsb = max_lsb(outs[device], outs["cpu"])
+    if not (lsb <= 1.0 and outs[device].shape == x.shape):
+        raise AssertionError(f"--ratio 1 {device} vs cpu: {lsb} LSB")
+    if device == "cuda" and launches < 1:
+        raise AssertionError("--ratio 1 never launched fused_frames")
+    eq_db = 20 * np.log10(np.abs(outs[device]).max() / np.abs(x).max())
+    (_, cfg, bundle), = [s for s in ratio1_states(device, profile)
+                         if s[1].taps == 1025]
+    k_ms = p_ms = float("nan")
+    if device == "cuda":
+        frames = torch.from_numpy((np.random.default_rng(2).normal(
+            size=(2 * 512, cfg.frame_in)) * 0.3).astype(np.float32)).to(device)
+        saved = ff.LAUNCHES
+        k_ms = cuda_time_ms(lambda: ff.fused_upsample_frames(frames, bundle,
+                                                              cfg))
+        p_ms = cuda_time_ms(lambda: osv.upsample_frames(frames, bundle, cfg))
+        ff.LAUNCHES = saved
+        del frames
+    no_jax()
+    phase("ratio1", f"totton-stream-torch --ratio 1 --eq-profile (3-band APO EQ, "
+          f"identity 1025 taps, fft 4096), {seconds:g} s stereo s16: "
+          f"{device} vs cpu max {lsb:.0f} LSB (limit 1); fused_frames "
+          f"launches {launches}; wall {walls[device]:.2f} s ({device}), "
+          f"{walls['cpu']:.2f} s (cpu); peak level {eq_db:+.2f} dB vs input; "
+          f"512 blocks stereo ratio 1: kernel {k_ms:.3f} ms, plain "
+          f"{p_ms:.3f} ms on {card}")
+    return launches
+
+
+def threaded_phase(card, work, device="cuda", seconds=10.0):
+    """--threaded file mode at 16x/80k against the same file without it:
+    0 LSB expected, 1 LSB limit. Returns the launches of the threaded
+    run."""
+    from totton_tpu.io.wav import read_wav, write_wav
+    from totton_tpu.testing.signals import sine
+
+    x = sine(1000.0, seconds, RATE, amplitude=0.5, channels=2)
+    in_path = os.path.join(work, "th_in.wav")
+    write_wav(in_path, x, RATE)
+    outs, runs = {}, {}
+    for name, extra in (("threaded", ["--threaded"]), ("sync", [])):
+        path = os.path.join(work, f"th_{name}.wav")
+        stats_path = os.path.join(work, f"th_{name}.json")
+        t0 = time.monotonic()
+        rc, n, _ = run_cli(["--in", in_path, "--out", path, "--ratio", "16",
+                            "--filter-dir", FILTER_DIR, "--format", "s16",
+                            "--device", device, "--stats-path", stats_path]
+                           + extra)
+        if rc != 0:
+            raise AssertionError(f"{name} run exited {rc}")
+        with open(stats_path) as f:
+            stats = json.load(f)
+        runs[name] = (n, time.monotonic() - t0, stats)
+        outs[name] = read_wav(path)[0]
+    lsb = max_lsb(outs["threaded"], outs["sync"])
+    n, wall, stats = runs["threaded"]
+    if not (lsb <= 1.0 and outs["threaded"].shape == (2, x.shape[1] * 16)
+            and stats["frames_out"] == 16 * stats["frames_in"]):
+        raise AssertionError(f"--threaded vs synchronous: {lsb} LSB, "
+                             f"stats {stats}")
+    if device == "cuda" and n < 1:
+        raise AssertionError("--threaded never launched fused_frames")
+    no_jax()
+    phase("threaded", f"--threaded 16x/80k file mode, {seconds:g} s stereo "
+          f"s16: max {lsb:.0f} LSB vs the synchronous session (limit 1); "
+          f"fused_frames launches {n}; blocks {stats['blocks_processed']}; "
+          f"realtime factor {stats['realtime_factor']:.1f}x threaded, "
+          f"{runs['sync'][2]['realtime_factor']:.1f}x synchronous; wall "
+          f"{wall:.2f} / {runs['sync'][1]:.2f} s on {card}")
+    return n
+
+
+def crossfeed_phase(card, work, lf, device="cuda", seconds=(3.0, 10.0),
+                    time_blocks=512):
+    """The crossfeed chain at 16x/80k with a set generated on the spot:
+    (a) CrossfeedChain(StreamingUpsampler, CrossfeedProcessor) against the
+    kernel's own upsample_signal output through a float64 2x2
+    fftconvolve, shifted by the chain's latency (rel < 1e-5), with the
+    crossfeed step's share of one ``time_blocks``-block dispatch; (b) the
+    CLI with --crossfeed passes validate_audio. Returns the launches."""
+    import numpy as np
+    from scipy import signal as ssig
+
+    from totton_tpu.filters.hrtf import generate_all
+    from totton_tpu.io.wav import read_wav, write_wav
+    from totton_tpu.testing.signals import sine
+    from totton_tpu.testing.validate_output import validate_audio
+    from totton_tpu_torch.engine.chain import CrossfeedChain
+    from totton_tpu_torch.engine.crossfeed import (
+        CrossfeedFilter,
+        CrossfeedProcessor,
+    )
+    from totton_tpu_torch.engine.upsampler import (
+        StreamingUpsampler,
+        upsample_signal,
+    )
+    from totton_tpu_torch.ops import fused_frames as ff
+
+    cf_path = generate_all(os.path.join(work, "cf"), sizes=["M"],
+                           families=["44k"])[0]
+    cf_filter = CrossfeedFilter.load(cf_path)
+    ff.LAUNCHES = 0
+    chain = CrossfeedChain(StreamingUpsampler(lf, 2, device=device),
+                           CrossfeedProcessor(cf_filter, device=device))
+    bi = chain.block_input_frames
+    nb = int(seconds[0] * RATE) // bi
+    x = seeded_signal(nb * bi / RATE, 3)[:, :nb * bi]
+    cuts = [0, 1, nb // 3, nb]
+    y = np.concatenate([chain.process_block(x[:, a * bi:b * bi])
+                        for a, b in zip(cuts, cuts[1:])], axis=1)
+    launches = ff.LAUNCHES
+    up = upsample_signal(x, lf, device=device).astype(np.float64)
+    ll, lr, rl, rr = cf_filter.channels
+    n = up.shape[1]
+    ref = np.stack([
+        ssig.fftconvolve(up[0], ll)[:n] + ssig.fftconvolve(up[1], rl)[:n],
+        ssig.fftconvolve(up[0], lr)[:n] + ssig.fftconvolve(up[1], rr)[:n]])
+    d = chain.latency
+    rel = rel_err(y[:, d:], ref[:, :n - d])
+    if not (rel < REL_TOL and np.abs(y[:, :d]).max() == 0):
+        raise AssertionError(f"crossfeed chain vs float64 oracle rel {rel}")
+    if device == "cuda" and launches < 1:
+        raise AssertionError("the chain never launched fused_frames")
+
+    # The crossfeed stage's share of one deep dispatch: host time of the
+    # upsampler alone and of the chain on the same input (both end in a
+    # host array), and the crossfeed step's device time alone.
+    xt = seeded_signal(time_blocks * bi / RATE, 4)[:, :time_blocks * bi]
+    up_eng = StreamingUpsampler(lf, 2, device=device)
+    up_eng.process_block(xt)  # first use of the shape (allocation)
+    t0 = time.perf_counter()
+    y_up = up_eng.process_block(xt)
+    t_up = time.perf_counter() - t0
+    chain.reset()
+    chain.process_block(xt)
+    t0 = time.perf_counter()
+    chain.process_block(xt)
+    t_chain = time.perf_counter() - t0
+    cf_ms = float("nan")
+    if device == "cuda":
+        import torch
+
+        cf = chain.crossfeed
+        y_dev = torch.from_numpy(y_up[:, :y_up.shape[1] - y_up.shape[1]
+                                      % cf.config.block_in].copy()).to(device)
+        cf_ms = cuda_time_ms(lambda: cf._step(cf._tail, y_dev, cf._h),
+                             warmup=1, reps=3)
+        del y_dev
+        torch.cuda.empty_cache()
+
+    # (b) the CLI with --crossfeed.
+    xs = sine(1000.0, seconds[1], RATE, amplitude=0.5, channels=2)
+    in_path = os.path.join(work, "cf_in.wav")
+    out_path = os.path.join(work, "cf_out.wav")
+    write_wav(in_path, xs, RATE)
+    ff.LAUNCHES = 0
+    rc, n_cli, err = run_cli(["--in", in_path, "--out", out_path, "--ratio",
+                              "16", "--filter-dir", FILTER_DIR, "--format",
+                              "s16", "--device", device, "--crossfeed",
+                              cf_path], capture=True)
+    ys, rate = read_wav(out_path)
+    report = validate_audio(xs, ys, output_ratio=16)
+    if not (rc == 0 and report["passed"] and ys.shape == (2, xs.shape[1] * 16)
+            and "Crossfeed enabled" in err):
+        raise AssertionError(f"--crossfeed CLI: exit {rc}, {report}")
+    if device == "cuda" and n_cli < 1:
+        raise AssertionError("--crossfeed CLI never launched fused_frames")
+    no_jax()
+    cfg = chain.crossfeed.config
+    phase("crossfeed", f"set {os.path.basename(cf_path)}: {cf_filter.taps} "
+          f"taps/channel, fft {cfg.fft_size}, block {cfg.block_size}, chain "
+          f"latency {d} output frames; (a) 16x/80k chain, {nb} blocks in 3 "
+          f"chunks, vs float64 2x2 fftconvolve of the kernel's output: rel "
+          f"{rel:.3e} (limit {REL_TOL:g}); {time_blocks}-block stereo "
+          f"dispatch, host: upsampler {t_up * 1e3:.1f} ms, chain "
+          f"{t_chain * 1e3:.1f} ms (crossfeed share "
+          f"{(t_chain - t_up) / t_chain:.1%}); crossfeed step device "
+          f"{cf_ms:.3f} ms; (b) --crossfeed CLI {seconds[1]:g} s: exit {rc}, "
+          f"validate_audio {json.dumps(report, default=float)}; "
+          f"fused_frames launches {launches} + {n_cli} on {card}")
+    return launches + n_cli
+
+
+def live_phase(card, work, device="cuda", seconds=10.0, period=4096):
+    """The live product path: totton-stream-torch on a tcp-listen socket
+    input, --threaded, with the in-process control endpoint, driven by a
+    real-time sender thread and a DaemonClient thread (PING,
+    PHASE_TYPE_SET linear, RELOAD with an EQ and alsa.dither turned on in
+    config.json, SOFT_RESET, STATS), each reply timed. The CLI runs on this
+    (the main) thread for its signal handlers. Returns the launches."""
+    import socket
+    import threading
+
+    import numpy as np
+    import torch
+
+    from totton_tpu.control.client import DaemonClient
+    from totton_tpu.io.pcm import PcmFormat, float_to_pcm, interleave
+    from totton_tpu.io.sockets import pack_header
+    from totton_tpu.io.wav import read_wav
+    from totton_tpu.testing.signals import sine
+
+    port = free_port()
+    endpoint = f"ipc://{work}/c.sock"
+    cfg_path = os.path.join(work, "config.json")
+    profile = write_profile(work, "live_eq.txt")
+    with open(cfg_path, "w") as f:
+        json.dump({"eqEnabled": False}, f)
+    out_path = os.path.join(work, "live.wav")
+    stats_path = os.path.join(work, "live_stats.json")
+    x = sine(440.0, seconds, RATE, amplitude=0.5, channels=2)
+    replies, errors = [], []
+    sent = {"frames": 0}
+
+    def sender():
+        try:
+            deadline = time.monotonic() + 120
+            while True:
+                try:
+                    s = socket.create_connection(("127.0.0.1", port),
+                                                 timeout=10)
+                    break
+                except OSError:
+                    if time.monotonic() > deadline:
+                        raise
+                    time.sleep(0.05)
+            with s:
+                s.sendall(pack_header(PcmFormat.S16_LE, 2, RATE))
+                t0 = time.monotonic()
+                for i in range(0, x.shape[1], period):
+                    chunk = x[:, i:i + period]
+                    s.sendall(float_to_pcm(interleave(chunk),
+                                           PcmFormat.S16_LE))
+                    sent["frames"] += chunk.shape[1]
+                    ahead = t0 + sent["frames"] / RATE - time.monotonic()
+                    if ahead > 0:
+                        time.sleep(ahead)
+        except Exception as e:  # raised on the main thread
+            errors.append(("sender", e))
+
+    def controller():
+        try:
+            client = DaemonClient(endpoint=endpoint, timeout_ms=30000)
+            deadline = time.monotonic() + 120
+            while not client.ping():
+                if time.monotonic() > deadline:
+                    raise AssertionError("the control endpoint never "
+                                         "answered PING")
+                time.sleep(0.05)
+            while sent["frames"] < RATE:  # one second into the stream
+                time.sleep(0.01)
+
+            def timed(name, fn, check):
+                t0 = time.perf_counter()
+                r = fn()
+                replies.append((name, (time.perf_counter() - t0) * 1e3))
+                if not check(r):
+                    raise AssertionError(f"{name} reply {r.raw}")
+                time.sleep(1.0)
+                return r
+
+            timed("PING", client.ping, bool)
+            timed("PHASE_TYPE_SET linear",
+                  lambda: client.set_phase_type("linear"), lambda r: r.ok)
+            with open(cfg_path) as f:
+                conf = json.load(f)
+            conf.update({"eqEnabled": True, "eqProfilePath": profile,
+                         "alsa": {"dither": True}})
+            with open(cfg_path, "w") as f:
+                json.dump(conf, f)
+            timed("RELOAD", client.reload_config, lambda r: r.ok)
+            timed("SOFT_RESET", client.soft_reset, lambda r: r.ok)
+            timed("STATS", client.stats,
+                  lambda r: r.ok and r.data["reloads"] >= 1)
+        except Exception as e:  # raised on the main thread
+            errors.append(("control", e))
+
+    threads = [threading.Thread(target=sender, name="smoke-sender"),
+               threading.Thread(target=controller, name="smoke-control")]
+    for t in threads:
+        t.start()
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    rc, launches, err = run_cli(
+        ["--in", f"tcp-listen://127.0.0.1:{port}", "--out", out_path,
+         "--ratio", "16", "--filter-dir", FILTER_DIR, "--format", "s16",
+         "--threaded", "--control-endpoint", endpoint, "--config", cfg_path,
+         "--stats-path", stats_path, "--device", device], capture=True)
+    wall = time.monotonic() - t0
+    for t in threads:
+        t.join(timeout=120)
+    peak = (torch.cuda.max_memory_allocated() / 2**20 if device == "cuda"
+            else float("nan"))
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"live phase threads failed: {errors}; "
+                             f"stderr {err[-2000:]}")
+    with open(stats_path) as f:
+        stats = json.load(f)
+    y, rate = read_wav(out_path)
+    blocks = stats["blocks_processed"]
+    checks = {
+        "exit 0": rc == 0,
+        "frames_out = 16 x frames_in": (
+            stats["frames_in"] == x.shape[1]
+            and stats["frames_out"] == 16 * stats["frames_in"]
+            and y.shape == (2, 16 * x.shape[1]) and rate == 16 * RATE),
+        "no xruns": stats["xruns"] == {"input_overflows": 0,
+                                       "output_overflows": 0},
+        "live reloads": (err.count("Live reload:") >= 2
+                         and "Live dither: on" in err and "+ EQ" in err
+                         and "linear_phase" in err),
+        "launches cover the blocks": blocks > 0 and (
+            device != "cuda" or launches * 8 >= blocks),
+        "finite": bool(np.isfinite(y).all()),
+    }
+    if device == "cuda" and launches < 1:
+        checks["launched"] = False
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"live phase failed {failed}: stats {stats}; "
+                             f"launches {launches}; stderr {err[-3000:]}")
+    no_jax()
+    phase("live", f"tcp-listen socket, {seconds:g} s stereo s16 at the live "
+          f"44.1 kHz pace in {period}-frame periods -> 16x/80k, --threaded, "
+          f"control endpoint: replies ms "
+          f"{{{', '.join(f'{k}: {v:.2f}' for k, v in replies)}}}; blocks "
+          f"{blocks}, fused_frames launches {launches}; realtime factor "
+          f"{stats['realtime_factor']:.1f}x; xruns {stats['xruns']}; wall "
+          f"{wall:.2f} s; device peak memory {peak:.0f} MiB on {card}")
+    return launches
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -460,13 +898,21 @@ def main() -> int:
         spec = osv.filter_spectrum(lf.taps, cfg.fft_size, device=dev)
         return lf, cfg, osv.fold_bundle(spec, cfg)
 
-    # 3. Kernel vs plain on the card at the main path's ragged frame counts.
+    work = os.path.join(HERE, "build", "chip_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    profile = write_profile(work)
+
+    # 3. Kernel vs plain on the card at the main path's ragged frame counts,
+    # and the ratio-1 (halves) branch at the same counts and at 1024.
     rng = np.random.default_rng(0)
     main_err = 0.0
-    for name in PARITY_FILTERS:
-        _, cfg, bundle = engine_state(name)
+    states = [(name, *engine_state(name)[1:]) for name in PARITY_FILTERS]
+    states += ratio1_states(dev, profile)
+    for name, cfg, bundle in states:
         rels = []
-        for n in PARITY_FRAMES:
+        counts = PARITY_FRAMES + ((1024,) if cfg.ratio == 1 else ())
+        for n in counts:
             frames = torch.from_numpy(
                 (rng.normal(size=(n, cfg.frame_in)) * 0.3).astype(np.float32)
             ).to(dev)
@@ -476,6 +922,8 @@ def main() -> int:
                 main_err = max(main_err, err)
         phase("parity", f"{name}: kernel vs plain rel by frame count "
               f"{{{', '.join(rels)}}} (limit rel {REL_TOL:g})")
+        del bundle
+    del states
 
     # 4. Kernel vs the float64 oracle at 16x/80k, 32 blocks.
     lf, cfg, bundle = engine_state(MAIN_FILTER)
@@ -509,15 +957,12 @@ def main() -> int:
     from totton_tpu.testing.validate_output import validate_audio
     from totton_tpu_torch.cli import stream as stream_cli
 
-    work = os.path.join(HERE, "build", "chip_smoke")
-    shutil.rmtree(work, ignore_errors=True)
-    os.makedirs(work)
+    fs = 44100
+    in_path = os.path.join(work, "in.wav")
+    out_path = os.path.join(work, "out.wav")
+    stats_path = os.path.join(work, "stats.json")
     try:
-        fs = 44100
         x = sine(1000.0, 40.0, fs, amplitude=0.5, channels=2)
-        in_path = os.path.join(work, "in.wav")
-        out_path = os.path.join(work, "out.wav")
-        stats_path = os.path.join(work, "stats.json")
         write_wav(in_path, x, fs)
         ff.LAUNCHES = 0
         t0 = time.monotonic()
@@ -534,7 +979,9 @@ def main() -> int:
         y, rate = read_wav(out_path)
         report = validate_audio(x, y, output_ratio=16)
     finally:
-        shutil.rmtree(work, ignore_errors=True)
+        for path in (in_path, out_path):
+            if os.path.exists(path):
+                os.remove(path)
     phase("main", f"{x.shape[1] / fs:.0f} s stereo 44.1k -> {rate} Hz s16: "
           f"{stats['blocks_processed']} blocks, fused_frames launches "
           f"{launches}, realtime factor {stats['realtime_factor']:.1f}x "
@@ -611,13 +1058,26 @@ def main() -> int:
     low = load_filter(os.path.join(FILTER_DIR,
                                    "filter_44k_16x_8000_min_phase.json"))
     low_launches = serve_low_phase(card, low, "cuda")
+    torch.cuda.empty_cache()
+
+    # 10. Ratio 1 (the kernel's halves branch) through the CLI, EQ only.
+    r1_launches = ratio1_phase(card, work)
+    # 11. The threaded session in file mode, 16x/80k.
+    th_launches = threaded_phase(card, work)
+    # 12. The crossfeed chain, engine level and CLI, 16x/80k.
+    cf_launches = crossfeed_phase(card, work, lf)
+    torch.cuda.empty_cache()
+    # 13. The live product path: socket input, threaded, control endpoint.
+    live_launches = live_phase(card, work)
+    shutil.rmtree(work, ignore_errors=True)
 
     print(json.dumps({"kernels": [{
         "name": "fused_frames",
         "route": "cuda",
         "source": "totton_tpu_torch/csrc/fused_frames.cu",
         "replaces": "totton_tpu/experimental/pallas_kernels.py:284",
-        "launches": launches + serve_launches + low_launches,
+        "launches": (launches + serve_launches + low_launches + r1_launches
+                     + th_launches + cf_launches + live_launches),
         "max_abs_err": main_err,
         "ms": timings[512][0],
         "plain_ms": timings[512][1],

@@ -1,8 +1,9 @@
 """Drift guard for the port's copies of JAX-package modules.
 
-``totton_tpu/serve.py``, ``io/stream.py`` and ``engine/selector.py`` import
-the JAX engine (or a package that does) at their top, so the port carries
-copies of them. This test reads each pair as text (``ast.parse``, never an
+``totton_tpu/serve.py``, ``io/stream.py``, ``engine/{selector,chain,
+crossfeed}.py`` and ``eq/{apo,biquad}.py`` import the JAX engine (or sit in
+a package that imports jax) at their top, so the port carries copies of
+them. This test reads each pair as text (``ast.parse``, never an
 import) and requires every top-level function and class member to be the
 same code with docstrings stripped, except the device seams listed below.
 A new divergence, or a seam that stopped diverging, fails."""
@@ -22,12 +23,23 @@ SEAMS = {
         "StreamServer.load_filter", "StreamServer._apply_pending_control",
         "StreamServer._to_device", "StreamServer._drain_one",
         "StreamServer._dispatcher", "StreamServer.start",
+        # The port's copies of the EQ modules (the JAX eq package loads
+        # jax on import).
+        "_profile_to_sos", "StreamServer._read_eq_block",
     },
-    # The session without the JAX engine's sharding and crossfeed probes,
-    # and the threaded session, which is not ported yet.
-    "io/stream.py": {"StreamSession.__init__", "_warm_up",
-                     "ThreadedStreamSession"},
+    # The session without the JAX engine's sharding probes; the warm-up
+    # imports the port's fade widths.
+    "io/stream.py": {"StreamSession.__init__", "_warm_up"},
     "engine/selector.py": set(),
+    "engine/chain.py": set(),
+    "eq/apo.py": set(),
+    "eq/biquad.py": set(),
+    # The step and the processor's state on an explicit torch device.
+    "engine/crossfeed.py": {
+        "_make_cf_step", "CrossfeedProcessor.__init__",
+        "CrossfeedProcessor.reset", "CrossfeedProcessor.process_block",
+        "crossfeed_signal",
+    },
 }
 
 
@@ -92,14 +104,14 @@ def test_copy_matches_reference_outside_its_seams(rel):
 @pytest.mark.parametrize("rel", sorted(SEAMS))
 def test_copy_is_not_an_import(rel):
     """The copies must stay loadable without jax: none may import the JAX
-    package's engine, ops or serve modules."""
+    package's engine, ops, eq or serve modules."""
     with open(os.path.join(REPO, "totton_tpu_torch", rel)) as f:
         tree = ast.parse(f.read())
     for node in ast.walk(tree):
         if isinstance(node, ast.ImportFrom) and node.module:
             assert not node.module.startswith(
                 ("totton_tpu.engine", "totton_tpu.ops", "totton_tpu.serve",
-                 "jax")), node.module
+                 "totton_tpu.eq", "jax")), node.module
         if isinstance(node, ast.Import):
             assert not any(a.name.split(".")[0] == "jax"
                            for a in node.names)

@@ -67,3 +67,39 @@ def test_dithered_clamps_at_the_integer_edge(value):
     x = np.full(8192, value, dtype=np.float32)
     q = _dithered(x).astype(np.int64)
     assert q.max() <= 32767 and q.min() >= -32768
+
+
+
+def test_set_dither_live_in_device_pcm_mode(coefficients_dir):
+    """set_dither (the counterpart of the JAX engine's, which the CLI's
+    RELOAD calls for the web dither toggle): a float-output engine returns
+    False; a device-PCM engine swaps under its lock, creates the host TPDF
+    twin when turned on, and each dispatch after it is the seeded
+    quantize_s16_dithered of the float output (bit-exact), or the plain
+    quantize_s16 once turned off again."""
+    from totton_tpu.filters.sidecar import load_filter
+    from totton_tpu_torch.engine.upsampler import StreamingUpsampler
+
+    lf = load_filter(next(coefficients_dir.glob("filter_44k_2x_*.json")))
+    assert StreamingUpsampler(lf, 2, device="cpu").set_dither(True) is False
+    eng = StreamingUpsampler(lf, 2, device_pcm=PcmFormat.S16_LE,
+                             pcm_seed=11, device="cpu")
+    ref = StreamingUpsampler(lf, 2, device="cpu")
+    n = eng.block_input_frames
+    x = (np.random.default_rng(9).normal(size=(3, 2, n)) * 0.3).astype(
+        np.float32)
+
+    def plain(y):
+        return dp.quantize_s16(torch.from_numpy(y)).numpy()
+
+    np.testing.assert_array_equal(eng.process_block(x[0]),
+                                  plain(ref.process_block(x[0])))
+    assert eng._host_ditherer is None
+    assert eng.set_dither(True) is True
+    assert eng._pcm_dither and eng._host_ditherer is not None
+    expect = dp.quantize_s16_dithered(
+        torch.from_numpy(ref.process_block(x[1])), 11, 1).numpy()
+    np.testing.assert_array_equal(eng.process_block(x[1]), expect)
+    assert eng.set_dither(False) is True
+    np.testing.assert_array_equal(eng.process_block(x[2]),
+                                  plain(ref.process_block(x[2])))

@@ -144,3 +144,31 @@ def test_cuda_device_refused_without_cuda(coefficients_dir, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         StreamingUpsampler(_filter(coefficients_dir), 2, device="cuda")
+
+
+@pytest.mark.parametrize("taps", [1025, 1024])  # even and odd overlap
+def test_ratio1_engine_matches_jax(rng, taps):
+    """Ratio 1 (the CLI's EQ-only geometry, fft 4096) through the engine:
+    the folded program for an even overlap, the classic program for an
+    odd one, both against the JAX engine on the same chunks, rel < 1e-5,
+    with an EQ swap crossfaded mid-stream."""
+    from totton_tpu.filters.sidecar import FilterSidecar, LoadedFilter
+
+    h = (rng.normal(size=taps) * np.exp(-np.arange(taps) / 50.0)).astype(
+        np.float32)
+    lf = LoadedFilter(taps=h, sidecar=FilterSidecar(
+        coefficients_bin="<test>", taps=taps, fft_size=4096,
+        block_size=4096 - taps + 1, upsample_factor=1))
+    jeng = JaxUpsampler(lf, 2, swap_fade_frames=FADE)
+    teng = StreamingUpsampler(lf, 2, swap_fade_frames=FADE, device="cpu")
+    n = teng.block_input_frames
+    eq = rng.uniform(0.5, 1.0, size=teng.config.n_bins)
+    for i, k in enumerate((1, 3, 2)):
+        if i == 1:
+            jeng.set_eq(eq)
+            teng.set_eq(eq)
+        x = (rng.normal(size=(2, k * n)) * 0.3).astype(np.float32)
+        yj = np.asarray(jeng.process_block(x))
+        yt = teng.process_block(x)
+        assert yt.shape == yj.shape == x.shape
+        assert _rel(yt, yj) < 1e-5, f"chunk {i}"

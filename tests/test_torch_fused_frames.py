@@ -29,7 +29,7 @@ torch.set_num_threads(2)
 
 PALLAS_GEOMETRIES = [(257, 2048, 4), (1025, 4096, 2), (1025, 8192, 16),
                      (129, 1024, 1), (1025, 8192, 8)]
-KERNEL_GEOMETRIES = [g for g in PALLAS_GEOMETRIES if g[2] >= 2]
+KERNEL_GEOMETRIES = PALLAS_GEOMETRIES
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -65,12 +65,17 @@ def emulate_kernel(frames: np.ndarray, bundle, cfg) -> np.ndarray:
                              indexing="ij")
     k = k2 * p + ki
     if not pl["absorbed"]:
-        w = bundle.weights.numpy()
+        # Read as float2 in natural order (ratio 1: G1 then G2).
+        w = bundle.weights.numpy().reshape(-1, 2)
         c2 = c2 * (w[:, 0] + 1j * w[:, 1])[k]
     x = np.empty(n * m, complex)
     x[ni * m + (k % q2) * r + k // q2] = c2
-    # I1: batch q2, rows n, depth s, cols k1'; C[n, q2, k1'].
+    # I1: batch q2, rows n, depth s, cols k1'; C[n, q2, k1']. At ratio 1
+    # the loader sums X[n, q2, s] and X[n, q2, s + P2] (bins k and k + h).
     xs = x.reshape(n, q2, r)
+    if pl["halves"]:
+        xs = xs[..., :p2] + xs[..., p2:]
+    assert xs.shape[-1] == pl["depth_i1"]
     if pl["absorbed"]:
         w = bundle.weights.numpy()
         c3 = np.einsum("nqs,qsk->qnk", xs, w[..., 0] + 1j * w[..., 1])
@@ -150,11 +155,21 @@ def test_every_shipped_sidecar_is_in_the_kernel_envelope():
         assert plan["kept"] * plan["P2"] >= cfg.block_size // 2, path
 
 
-@pytest.mark.parametrize("taps", [129, 130])  # even and odd overlap
-def test_kernel_refuses_ratio_one(taps):
-    _, cfg = _cfgs(taps, 1024, 1)
-    with pytest.raises(NotImplementedError, match="ratio 1"):
+@pytest.mark.parametrize("taps,fft", [(130, 1024), (1024, 4096)])
+def test_kernel_refuses_odd_overlap(taps, fft):
+    """An even tap count (odd overlap, ratio 1 only) runs the classic
+    program, never the kernel, as in the JAX package."""
+    _, cfg = _cfgs(taps, fft, 1)
+    with pytest.raises(NotImplementedError, match="odd overlap"):
         ff.kernel_plan(cfg)
+
+
+def test_ratio_one_plan_reads_both_halves():
+    _, cfg = _cfgs(1025, 4096, 1)
+    pl = ff.kernel_plan(cfg)
+    assert pl["halves"] and not pl["absorbed"]
+    assert (pl["P2"], pl["Q2"], pl["r"], pl["depth_i1"]) == (64, 32, 128, 64)
+    assert ff.flops_per_launch(cfg)["I1"] == 8 * 2048 * 64
 
 
 def test_flops_per_output_sample_production_16x():
@@ -193,18 +208,26 @@ CUDA_FRAME_COUNTS = [2, 16, 18, 64, 128, 1024]
 @pytest.mark.parametrize("n_frames", CUDA_FRAME_COUNTS)
 @pytest.mark.parametrize("name", ["filter_44k_16x_80000_min_phase",
                                   "filter_44k_2x_80000_min_phase",
-                                  "filter_44k_16x_8000_min_phase"])
+                                  "filter_44k_16x_8000_min_phase",
+                                  "ratio1_1025_4096"])
 def test_cuda_kernel_matches_plain(name, n_frames):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
     from totton_tpu.filters.sidecar import load_filter
 
-    lf = load_filter(os.path.join(REPO, "data", "coefficients", name + ".json"))
-    cfg = tos.OverlapSaveConfig.from_sidecar(lf.sidecar)
+    rng = np.random.default_rng(0)
+    if name.startswith("ratio1"):
+        # The CLI's ratio-1 geometry with a seeded filter.
+        _, cfg = _cfgs(1025, 4096, 1)
+        taps = rng.normal(size=1025) * np.exp(-np.arange(1025) / 100.0)
+    else:
+        lf = load_filter(os.path.join(REPO, "data", "coefficients",
+                                      name + ".json"))
+        cfg = tos.OverlapSaveConfig.from_sidecar(lf.sidecar)
+        taps = lf.taps
     dev = torch.device("cuda")
     bundle = tos.fold_bundle(
-        tos.filter_spectrum(lf.taps, cfg.fft_size, device=dev), cfg)
-    rng = np.random.default_rng(0)
+        tos.filter_spectrum(taps, cfg.fft_size, device=dev), cfg)
     frames = torch.from_numpy(
         (rng.normal(size=(n_frames, cfg.frame_in)) * 0.3).astype(np.float32)
     ).to(dev)

@@ -144,10 +144,71 @@ def test_block_step_streaming_matches_single_shot(rng):
 
 
 def test_odd_overlap_not_ported():
+    """Odd overlap is not ported to the frame kernel: its bundle is the
+    classic program's (the spectrum itself) and kernel_plan refuses it."""
+    from totton_tpu_torch.ops import fused_frames as ff
+
     _, cfg = _cfgs(130, 1024, 1)
-    spec = tos.filter_spectrum(np.zeros(130), 1024)
+    spec = tos.filter_spectrum(np.arange(130.0), 1024)
+    bundle = tos.fold_bundle(spec, cfg)
+    assert bundle.classic and not bundle.absorbed
+    np.testing.assert_array_equal(bundle.weights[:, 0].numpy(),
+                                  spec[0].numpy())
+    np.testing.assert_array_equal(bundle.weights[:, 1].numpy(),
+                                  spec[1].numpy())
     with pytest.raises(NotImplementedError, match="odd overlap"):
-        tos.fold_bundle(spec, cfg)
+        ff.kernel_plan(cfg)
+
+
+@pytest.mark.parametrize("taps,fft", [(130, 1024), (6, 64), (1024, 4096)])
+def test_classic_program_matches_jax_and_oracle(rng, taps, fft):
+    """Odd overlap (even tap count, ratio 1): the classic rfft/irfft
+    program against JAX upsample_blocks (which routes there too) and the
+    float64 oracle; rel < 1e-5."""
+    y, ref_jax, oracle, cfg = _both(rng, taps, fft, 1)
+    assert cfg.overlap % 2 == 1
+    assert y.shape == ref_jax.shape
+    assert rel_err(y, ref_jax) < 1e-5
+    assert rel_err(y, oracle) < 1e-5
+
+
+@pytest.mark.parametrize("ratio", [1, 2, 8])
+def test_periodic_rfft_extend_equal(rng, ratio):
+    sr = rng.normal(size=(2, 9)).astype(np.float32)
+    si = rng.normal(size=(2, 9)).astype(np.float32)
+    jr, ji = jos._periodic_rfft_extend(jnp.asarray(sr), jnp.asarray(si),
+                                       ratio)
+    tr, ti = tos._periodic_rfft_extend(torch.from_numpy(sr),
+                                       torch.from_numpy(si), ratio)
+    np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+
+
+def test_block_step_streams_odd_overlap(rng):
+    """make_block_step routes an odd overlap to the classic program:
+    streamed steps equal JAX's streaming step on the same chunks and the
+    single-shot plain output (rel < 1e-5), and the tail carries on."""
+    jcfg, cfg = _cfgs(130, 1024, 1)
+    h = rng.normal(size=cfg.taps)
+    jspec = jos.filter_spectrum(h, cfg.fft_size)
+    bundle, _ = from_jax(jspec, cfg)
+    x = rng.normal(size=(2, 5 * cfg.block_in)).astype(np.float32)
+    xin = np.concatenate([np.zeros((2, cfg.halo_in), np.float32), x], -1)
+    whole = tos.upsample_blocks(torch.from_numpy(xin), bundle, cfg).numpy()
+    step, jstep = tos.make_block_step(cfg), jos.make_block_step(jcfg)
+    tail = torch.zeros((2, cfg.halo_in))
+    jtail = jnp.zeros((2, cfg.halo_in), jnp.float32)
+    parts, jparts = [], []
+    for lo, hi in [(0, 2), (2, 3), (3, 5)]:
+        chunk = x[:, lo * cfg.block_in: hi * cfg.block_in]
+        y, tail = step(tail, torch.from_numpy(chunk), bundle)
+        jy, jtail = jstep(jtail, jnp.asarray(chunk), jspec)
+        parts.append(y.numpy())
+        jparts.append(np.asarray(jy))
+    got = np.concatenate(parts, -1)
+    assert rel_err(got, np.concatenate(jparts, -1)) < 1e-5
+    assert rel_err(got, whole) < 1e-5
+    np.testing.assert_array_equal(tail.numpy(), x[:, -cfg.halo_in:])
 
 
 def test_from_jax_carries_tail_and_checks_shapes(rng):

@@ -203,7 +203,7 @@ def test_width_transitions_stay_isolated(rng):
 def test_per_stream_eq_matches_sos_oracle(rng):
     from scipy.signal import sosfilt
 
-    from totton_tpu.eq.apo import parse_eq_string
+    from totton_tpu_torch.eq.apo import parse_eq_string
     from totton_tpu_torch.serve import _profile_to_sos
 
     lf = _filter()

@@ -1,6 +1,8 @@
-"""The port's file-mode CLI (totton-stream-torch) and session, on the CPU:
-validate_audio gates, parity with the JAX CLI, the jax-free import, and
-the refusals (no CUDA, flags not ported yet)."""
+"""The port's CLI (totton-stream-torch) and session, on the CPU:
+validate_audio gates, parity with the JAX CLI (file mode, ratio 1 with an
+EQ profile, --threaded, --crossfeed, --duration), the jax-free import, the
+flags of totton-stream the port carries, the transport-error exit code,
+and the refusals (no CUDA, sharding not ported yet)."""
 
 import json
 import os
@@ -110,17 +112,49 @@ def test_port_imports_no_jax(tmp_path):
         "import sys, numpy as np, torch\n"
         "import totton_tpu_torch.cli.stream, totton_tpu_torch.io.stream\n"
         "import totton_tpu_torch.serve, totton_tpu_torch.cli.serve\n"
+        "import totton_tpu_torch.engine.chain, totton_tpu_torch.engine.crossfeed\n"
+        "import totton_tpu.control.daemon\n"
         "from totton_tpu_torch.ops import overlap_save as o, fused_frames as f\n"
         "cfg = o.OverlapSaveConfig(257, 2048, 1792, 4)\n"
         "b = o.fold_bundle(o.filter_spectrum(np.ones(257), 2048), cfg)\n"
         "x = torch.zeros((2, cfg.halo_in + cfg.block_in))\n"
         "assert f.fused_upsample_blocks(x, b, cfg).shape == (2, 1792)\n"
+        "from totton_tpu_torch.eq import resolve_eq_response\n"
+        "open('eq.txt', 'w').write('Filter 1: ON PK Fc 1000 Hz Gain 3 dB Q 1')\n"
+        "assert resolve_eq_response('eq.txt', None, 4096, 44100)[0].shape "
+        "== (2049,)\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "print('NOJAX_OK')\n")
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=tmp_path,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "NOJAX_OK" in proc.stdout
+
+
+@pytest.mark.parametrize("use_config", [False, True])
+def test_eq_resolution_equals_the_reference(tmp_path, use_config):
+    """The port's resolve_eq_response (its own copies of the APO parser and
+    the biquads; the JAX eq package loads jax) gives the reference's
+    response bit for bit, from a profile path or from config.json."""
+    from totton_tpu.control.wiring import resolve_eq_response as ref
+    from totton_tpu_torch.eq import resolve_eq_response
+
+    profile = tmp_path / "eq.txt"
+    profile.write_text("Preamp: -4 dB\n"
+                       "Filter 1: ON PK Fc 1000 Hz Gain 3 dB Q 1.0\n"
+                       "Filter 2: ON LSC Fc 100 Hz Gain 2 dB Q 0.7\n"
+                       "Filter 3: ON HP Fc 20 Hz Q 0.7\n")
+    args = (str(profile), None)
+    if use_config:
+        cfg = tmp_path / "config.json"
+        cfg.write_text(json.dumps({"eqEnabled": True,
+                                   "eqProfilePath": str(profile)}))
+        args = (None, str(cfg))
+    got, desc = resolve_eq_response(*args, 8192, 705600)
+    want, want_desc = ref(*args, 8192, 705600)
+    np.testing.assert_array_equal(got, want)
+    assert desc == want_desc
+    assert resolve_eq_response(None, None, 8192, 705600) == (None, None)
 
 
 def test_device_cuda_without_cuda_exits_2(monkeypatch, capsys):
@@ -132,9 +166,7 @@ def test_device_cuda_without_cuda_exits_2(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--threaded"], ["--shard-time", "2"], ["--shard-channel", "2"],
-    ["--distributed"], ["--crossfeed", "cf.json"],
-    ["--control-endpoint", "ipc:///x"], ["--control-pub-endpoint", "tcp://x"],
+    ["--shard-time", "2"], ["--shard-channel", "2"], ["--distributed"],
 ])
 def test_flags_not_ported_exit_2(flag, capsys):
     rc = torch_cli.main(["--in", "a.wav", "--out", "b.wav", "--device",
@@ -146,3 +178,230 @@ def test_flags_not_ported_exit_2(flag, capsys):
 def test_missing_endpoints_exit_2(capsys):
     assert torch_cli.main(["--device", "cpu"]) == 2
     assert "required" in capsys.readouterr().err
+
+
+def _wav(tmp_path, rng, n, fs, name="in.wav"):
+    x = (rng.normal(size=(2, n)) * 0.2).astype(np.float32)
+    path = str(tmp_path / name)
+    write_wav(path, x, fs)
+    return path, read_wav(path)[0]
+
+
+def _lsb(a, b):
+    return np.abs(np.round(a * 32768) - np.round(b * 32768)).max()
+
+
+def test_cli_ratio1_eq_profile_matches_jax_cli(tmp_path, rng):
+    """--ratio 1 (the default) is the EQ-only mode: the identity filter
+    (1025 taps, fft 4096) with an APO profile baked in. Same s16 output
+    as the JAX CLI within 1 LSB; the EQ changes the signal."""
+    in_path, x = _wav(tmp_path, rng, 20000, 44100)
+    profile = tmp_path / "eq.txt"
+    profile.write_text("Preamp: -4 dB\n"
+                       "Filter 1: ON PK Fc 1000 Hz Gain 3 dB Q 1.0\n"
+                       "Filter 2: ON LSC Fc 100 Hz Gain 2 dB Q 0.7\n")
+    common = ["--in", in_path, "--format", "s16", "--eq-profile",
+              str(profile)]
+    assert torch_cli.main(common + ["--out", str(tmp_path / "t.wav"),
+                                    "--device", "cpu"]) == 0
+    assert jax_cli.main(common + ["--out", str(tmp_path / "j.wav")]) == 0
+    yt, rate = read_wav(str(tmp_path / "t.wav"))
+    yj, _ = read_wav(str(tmp_path / "j.wav"))
+    assert rate == 44100 and yt.shape == yj.shape == x.shape
+    assert _lsb(yt, yj) <= 1
+    assert _lsb(yt, x) > 100  # the EQ is applied, not a passthrough
+
+
+def test_cli_threaded_equals_unthreaded_and_jax(coefficients_dir, tmp_path,
+                                                rng):
+    """--threaded file mode gives the same samples as the synchronous
+    session (0 LSB expected, 1 allowed) and as the JAX CLI's threaded
+    run (1 LSB)."""
+    in_path, x = _wav(tmp_path, rng, 9000, 44100)
+    common = ["--in", in_path, "--filter", _filter16(coefficients_dir),
+              "--format", "s16"]
+    outs = {}
+    for name, extra in [("sync", []), ("threaded", ["--threaded"])]:
+        out = str(tmp_path / f"{name}.wav")
+        assert torch_cli.main(common + extra + ["--out", out, "--device",
+                                                "cpu"]) == 0
+        outs[name] = read_wav(out)[0]
+    assert jax_cli.main(common + ["--threaded", "--out",
+                                  str(tmp_path / "j.wav")]) == 0
+    yj = read_wav(str(tmp_path / "j.wav"))[0]
+    assert outs["threaded"].shape == (2, x.shape[1] * 16)
+    assert _lsb(outs["threaded"], outs["sync"]) <= 1
+    assert _lsb(outs["threaded"], yj) <= 1
+
+
+def test_cli_crossfeed_matches_jax_cli(coefficients_dir, tmp_path, rng):
+    """--crossfeed (float path: device PCM is off with the chain) against
+    the JAX CLI's chain, s16 within 1 LSB; stereo only."""
+    from totton_tpu.filters.hrtf import generate_all
+
+    cf = str(generate_all(tmp_path, sizes=["M"], families=["44k"])[0])
+    in_path, x = _wav(tmp_path, rng, 7000, 352800)
+    common = ["--in", in_path, "--filter-dir", str(coefficients_dir),
+              "--ratio", "2", "--format", "s16", "--crossfeed", cf]
+    assert torch_cli.main(common + ["--out", str(tmp_path / "t.wav"),
+                                    "--device", "cpu"]) == 0
+    assert jax_cli.main(common + ["--out", str(tmp_path / "j.wav")]) == 0
+    yt, rate = read_wav(str(tmp_path / "t.wav"))
+    yj, _ = read_wav(str(tmp_path / "j.wav"))
+    assert rate == 705600 and yt.shape == yj.shape == (2, 14000)
+    assert _lsb(yt, yj) <= 1
+    mono = str(tmp_path / "mono.wav")
+    write_wav(mono, x[:1], 352800)
+    assert torch_cli.main(["--in", mono, "--out", "null", "--filter-dir",
+                           str(coefficients_dir), "--ratio", "2",
+                           "--crossfeed", cf, "--device", "cpu"]) == 2
+
+
+def test_cli_duration_buffer_and_stats(coefficients_dir, tmp_path):
+    """--duration stops after that many seconds of input (the reference's
+    max_frames); --buffer is accepted (unused, as in the reference)."""
+    stats_path = str(tmp_path / "stats.json")
+    rc = torch_cli.main(["--in", "null", "--out", "null", "--rate",
+                         "352800", "--ratio", "2", "--filter-dir",
+                         str(coefficients_dir), "--duration", "0.05",
+                         "--buffer", "16384", "--device", "cpu",
+                         "--stats-path", stats_path])
+    assert rc == 0
+    with open(stats_path) as f:
+        stats = json.load(f)
+    assert stats["frames_in"] == int(0.05 * 352800)
+    assert stats["frames_out"] == 2 * stats["frames_in"]
+
+
+def test_cli_f32_wire_format_is_socket_only(tmp_path, rng, capsys):
+    """--format f32 means the raw float32 wire format (fmt None), which
+    only socket endpoints speak: a file endpoint fails to open (exit 1,
+    as the JAX CLI)."""
+    in_path, _ = _wav(tmp_path, rng, 1000, 44100)
+    args = ["--in-file", in_path + ".raw", "--out", "null", "--rate",
+            "44100", "--format", "f32"]
+    assert torch_cli.main(args + ["--device", "cpu"]) == 1
+    assert "socket-only" in capsys.readouterr().err
+    assert jax_cli.main(args) == 1
+
+
+def test_cli_passes_socket_reconnect_to_the_source(monkeypatch, tmp_path):
+    from totton_tpu.io import devices
+
+    seen = {}
+    real = devices.open_source
+
+    def spy(spec, fmt, channels, rate, socket_reconnect_s=0.0):
+        seen.update(fmt=fmt, reconnect=socket_reconnect_s)
+        return real(spec, fmt, channels, rate)
+
+    monkeypatch.setattr(devices, "open_source", spy)
+    rc = torch_cli.main(["--in", "null", "--out", "null", "--rate", "44100",
+                         "--duration", "0.01", "--format", "s16",
+                         "--socket-reconnect", "2.5", "--device", "cpu"])
+    assert rc == 0
+    assert seen == {"fmt": PcmFormat.S16_LE, "reconnect": 2.5}
+
+
+def test_soft_reset_targets_outermost_engine(coefficients_dir, tmp_path,
+                                             monkeypatch, rng):
+    """With --crossfeed, SOFT_RESET must clear the chain (its FIFO), not
+    just the inner upsampler; the leader's daemon publishes on
+    --control-pub-endpoint."""
+    from totton_tpu.control import daemon as daemon_mod
+    from totton_tpu.filters.hrtf import generate_all
+    from totton_tpu_torch.engine.chain import CrossfeedChain
+
+    cf = str(generate_all(tmp_path, sizes=["M"], families=["44k"])[0])
+    captured = {}
+
+    class FakeDaemon:
+        def __init__(self, **kw):
+            captured.update(kw)
+
+        def start(self):
+            pass
+
+        def stop(self):
+            pass
+
+        def wait_for_shutdown(self, timeout=None):
+            return True
+
+    monkeypatch.setattr(daemon_mod, "ControlDaemon", FakeDaemon)
+    in_path, _ = _wav(tmp_path, rng, 2000, 352800)
+    rc = torch_cli.main([
+        "--in", in_path, "--out", "null", "--filter-dir",
+        str(coefficients_dir), "--ratio", "2", "--crossfeed", cf,
+        "--control-endpoint", f"ipc://{tmp_path}/unused.sock",
+        "--control-pub-endpoint", f"ipc://{tmp_path}/pub.sock",
+        "--device", "cpu"])
+    assert rc == 0
+    assert isinstance(captured["on_soft_reset"].__self__, CrossfeedChain)
+    assert captured["endpoint"] == f"ipc://{tmp_path}/unused.sock"
+    assert captured["pub_endpoint"] == f"ipc://{tmp_path}/pub.sock"
+
+
+def test_transport_error_exits_nonzero(tmp_path):
+    """A mid-stream RST on a socket input ends totton-stream-torch with
+    exit 1 and the reference's message; an orderly FIN stays exit 0 (the
+    port twin of tests/test_stream_cli.py's test)."""
+    import socket
+    import struct
+    import threading
+    import time
+
+    from totton_tpu.io.pcm import interleave
+    from totton_tpu.io.sockets import pack_header
+
+    env = {k: v for k, v in os.environ.items() if k != "TOTTON_PLATFORM"}
+    env["TOTTON_COMPILE_CACHE"] = "0"
+
+    def run_case(rst: bool) -> int:
+        with socket.socket() as probe:
+            probe.bind(("127.0.0.1", 0))
+            port = probe.getsockname()[1]
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "totton_tpu_torch.cli.stream",
+             "--in", f"tcp-listen://127.0.0.1:{port}", "--out", "null",
+             "--device", "cpu"],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=env, cwd=REPO)
+
+        def send():
+            deadline = time.monotonic() + 120
+            while True:
+                try:
+                    s = socket.create_connection(("127.0.0.1", port),
+                                                 timeout=10)
+                    break
+                except OSError:
+                    if time.monotonic() > deadline:
+                        raise
+                    time.sleep(0.1)
+            s.sendall(pack_header(None, 2, 44100))
+            s.sendall(interleave(np.zeros((2, 4096), np.float32))
+                      .astype("<f4").tobytes())
+            time.sleep(0.5)
+            if rst:
+                s.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER,
+                             struct.pack("ii", 1, 0))
+            s.close()
+
+        t = threading.Thread(target=send)
+        t.start()
+        try:
+            rc = proc.wait(timeout=180)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        t.join(timeout=30)
+        assert not t.is_alive()
+        out = proc.stdout.read()
+        if rst:
+            assert "transport errors: 1" in out, out[-2000:]
+        return rc
+
+    assert run_case(rst=False) == 0
+    assert run_case(rst=True) == 1

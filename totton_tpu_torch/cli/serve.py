@@ -139,10 +139,10 @@ def main(argv: list[str] | None = None) -> int:
     from totton_tpu.control.wiring import (
         persist_phase,
         read_config_phase,
-        resolve_eq_response,
         resolve_startup_phase,
     )
     from totton_tpu.filters.sidecar import load_filter
+    from totton_tpu_torch.eq import resolve_eq_response
     from totton_tpu_torch.engine.selector import (
         FilterSelectionError,
         resolve_filter_path,

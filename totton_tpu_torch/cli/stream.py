@@ -1,18 +1,22 @@
-"""Streaming upsampler CLI on the port (file mode): ``totton-stream-torch``.
+"""Streaming upsampler CLI on the port: ``totton-stream-torch``.
 
-The flag surface of ``totton-stream`` for files, WAV and stdio endpoints,
-running the port's engine on a CUDA device (or the plain torch path with
-``--device cpu``):
+The flag surface of ``totton-stream`` for one process, running the port's
+engine on a CUDA device (or the plain torch path with ``--device cpu``):
+file, WAV, stdio and socket endpoints, the live threaded session, the
+crossfeed chain and the in-process ZeroMQ control plane:
 
   totton-stream-torch --in song.wav --out up.wav --ratio 16 \\
       --filter-dir data/coefficients --format s16
   totton-stream-torch --in-file in.raw --out-file out.raw --rate 44100 \\
       --ratio 16 --format s32
+  totton-stream-torch --in tcp-listen://127.0.0.1:9000 --out up.wav \\
+      --ratio 16 --threaded --control-endpoint ipc:///tmp/totton.sock
 
-Sharding, crossfeed, the threaded session and the control plane are not
-ported yet; their flags exit with code 2.
+Sharding (``--shard-time``, ``--shard-channel``, ``--distributed``) is not
+ported yet; those flags exit with code 2.
 
-Exit codes: 0 ok, 1 runtime failure, 2 bad arguments or no CUDA device.
+Exit codes: 0 ok, 1 runtime failure (including transport errors no
+reconnect answered), 2 bad arguments or no CUDA device.
 """
 
 from __future__ import annotations
@@ -21,11 +25,12 @@ import argparse
 import os
 import signal
 import sys
+import threading
+from pathlib import Path
 
 import numpy as np
 
-_NOT_PORTED = ("shard_time", "shard_channel", "distributed", "crossfeed",
-               "threaded", "control_endpoint", "control_pub_endpoint")
+_NOT_PORTED = ("shard_time", "shard_channel", "distributed")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -35,9 +40,13 @@ def build_parser() -> argparse.ArgumentParser:
         formatter_class=argparse.RawDescriptionHelpFormatter,
     )
     p.add_argument("--in", dest="in_spec",
-                   help="input endpoint (null | path.wav | file:path | -)")
+                   help="input endpoint (null | path.wav | file:path | - | "
+                        "tcp://h:p | tcp-listen://[h]:p | unix:/p | "
+                        "unix-listen:/p)")
     p.add_argument("--out", dest="out_spec",
-                   help="output endpoint (null | path.wav | file:path | -)")
+                   help="output endpoint (null | path.wav | file:path | - | "
+                        "tcp://h:p | tcp-listen://[h]:p | unix:/p | "
+                        "unix-listen:/p)")
     p.add_argument("--in-file", dest="in_file",
                    help="raw PCM input file (interleaved)")
     p.add_argument("--out-file", dest="out_file",
@@ -49,46 +58,70 @@ def build_parser() -> argparse.ArgumentParser:
                    help="filter phase for auto lookup (default: config.json's "
                         "filter.phaseType when --config is given, else min)")
     p.add_argument("--ratio", type=int, default=1, choices=[1, 2, 4, 8, 16],
-                   help="upsample ratio for auto lookup")
+                   help="upsample ratio for auto lookup (1: EQ only, an "
+                        "identity filter with the EQ baked in)")
     p.add_argument("--latency", default="normal", choices=["normal", "low"],
                    help="filter-bank latency mode for auto lookup: 'normal' "
                         "picks the highest tap count, 'low' the lowest")
     p.add_argument("--rate", type=int, help="input sample rate (Hz)")
     p.add_argument("--channels", type=int, default=2)
-    p.add_argument("--format", default="s32", help="PCM format (s16|s24|s32)")
+    p.add_argument("--format", default="s32",
+                   help="PCM format (s16|s24|s32; f32 = lossless float32, "
+                        "socket endpoints only)")
     p.add_argument("--period", type=int, default=4096, help="period frames")
+    p.add_argument("--buffer", type=int, default=None,
+                   help="buffer frames (default period*4)")
     p.add_argument("--eq-profile", help="Equalizer-APO profile to bake in")
     p.add_argument("--config", dest="config_path",
                    default=os.environ.get("TOTTON_CONFIG_PATH"),
-                   help="config.json: eqEnabled/eqProfilePath and "
-                        "filter.phaseType are read at startup "
-                        "(default $TOTTON_CONFIG_PATH)")
+                   help="config.json to track: eqEnabled/eqProfilePath are "
+                        "read at startup AND re-read on every RELOAD "
+                        "(--eq-profile overrides; default "
+                        "$TOTTON_CONFIG_PATH)")
     p.add_argument("--dither", action="store_true",
                    help="TPDF-dither the float->PCM output quantization")
     p.add_argument("--device-pcm", choices=["auto", "on", "off"],
                    default="auto",
                    help="quantize float->s16 on the device (halves the "
-                        "device->host transfer). auto: on for s16 output")
+                        "device->host transfer). auto: on for s16 output "
+                        "except with --crossfeed")
     p.add_argument("--swap-fade", type=int, default=4096, metavar="FRAMES",
-                   help="crossfade length (output frames) for filter/EQ "
+                   help="crossfade length (output frames) for live filter/EQ "
                         "hot swaps (0 = abrupt swap)")
+    p.add_argument("--crossfeed",
+                   help="crossfeed filter JSON (4-channel LL/LR/RL/RR set) "
+                        "applied after upsampling")
     p.add_argument("--batch-blocks", type=int, default=None,
                    help="filter blocks per device dispatch (default auto: "
                         "deep batches for file sources, small for realtime)")
-    p.add_argument("--stats-path", help="write stats JSON here")
+    p.add_argument("--socket-reconnect", type=float, default=0.0,
+                   metavar="SECONDS",
+                   help="listen-mode socket input only: after the sender "
+                        "disconnects, wait this long for a new sender with "
+                        "an identical stream header and splice it in "
+                        "(0 = off)")
+    p.add_argument("--stats-path", help="write live stats JSON here")
+    p.add_argument("--duration", type=float,
+                   help="stop after this many seconds of input")
+    p.add_argument("--threaded", action="store_true",
+                   help="feeder/drainer threads around the device dispatch "
+                        "(live-mode pipeline)")
+    p.add_argument("--control-endpoint", metavar="ENDPOINT",
+                   help="serve the ZMQ control protocol from inside the "
+                        "streamer (RELOAD/SOFT_RESET/PHASE_TYPE_* act on "
+                        "the live engine; e.g. ipc:///tmp/totton_zmq.sock)")
+    p.add_argument("--control-pub-endpoint", metavar="ENDPOINT",
+                   help="control-event PUB endpoint: the control endpoint "
+                        "publishes every state-changing command here")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default; exits 2 without CUDA) "
                         "or cpu (the plain torch path)")
     # Not ported yet: accepted so the refusal is explicit.
-    p.add_argument("--threaded", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--shard-time", type=int, default=0, help=argparse.SUPPRESS)
     p.add_argument("--shard-channel", type=int, default=0,
                    help=argparse.SUPPRESS)
     p.add_argument("--distributed", action="store_true",
                    help=argparse.SUPPRESS)
-    p.add_argument("--crossfeed", help=argparse.SUPPRESS)
-    p.add_argument("--control-endpoint", help=argparse.SUPPRESS)
-    p.add_argument("--control-pub-endpoint", help=argparse.SUPPRESS)
     return p
 
 
@@ -112,18 +145,20 @@ def main(argv: list[str] | None = None) -> int:
         return 2
 
     from totton_tpu.control.wiring import (
-        resolve_eq_response,
+        persist_phase,
+        read_config_phase,
         resolve_startup_phase,
     )
     from totton_tpu.filters.sidecar import FilterSidecar, LoadedFilter, load_filter
     from totton_tpu.io.devices import open_sink, open_source
     from totton_tpu.io.pcm import PcmFormat, parse_format
+    from totton_tpu_torch.eq import resolve_eq_response as _resolve_eq
     from totton_tpu_torch.engine.selector import (
         FilterSelectionError,
         resolve_filter_path,
     )
     from totton_tpu_torch.engine.upsampler import StreamingUpsampler
-    from totton_tpu_torch.io.stream import StreamSession
+    from totton_tpu_torch.io.stream import StreamSession, ThreadedStreamSession
 
     in_spec = args.in_file or args.in_spec
     out_spec = args.out_file or args.out_spec
@@ -135,14 +170,18 @@ def main(argv: list[str] | None = None) -> int:
             args.rate or in_spec.endswith(".wav")):
         print("error: --rate is required in raw file mode", file=sys.stderr)
         return 2
-    try:
-        fmt = parse_format(args.format)
-    except ValueError as e:
-        print(f"error: {e}", file=sys.stderr)
-        return 2
+    if args.format.lower() in ("f32", "float32", "float"):
+        fmt = None  # raw float32 wire format (socket endpoints only)
+    else:
+        try:
+            fmt = parse_format(args.format)
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
 
     try:
-        source = open_source(in_spec, fmt, args.channels, args.rate)
+        source = open_source(in_spec, fmt, args.channels, args.rate,
+                             socket_reconnect_s=args.socket_reconnect)
     except (OSError, ValueError) as e:
         print(f"error: cannot open input {in_spec}: {e}", file=sys.stderr)
         return 1
@@ -151,6 +190,7 @@ def main(argv: list[str] | None = None) -> int:
         print("error: input rate unknown; pass --rate", file=sys.stderr)
         return 2
 
+    # Startup phase: explicit --phase > config.json filter.phaseType > min.
     phase = resolve_startup_phase(args.phase, args.config_path)
     try:
         if args.filter or args.ratio > 1:
@@ -163,7 +203,7 @@ def main(argv: list[str] | None = None) -> int:
                   f"(taps={loaded.sidecar.taps}, ratio={loaded.ratio})",
                   file=sys.stderr)
         else:
-            # Ratio-1 passthrough: identity single-tap filter.
+            # Ratio-1 passthrough: identity single-tap filter (EQ only).
             taps = np.zeros(1025, dtype=np.float32)
             taps[0] = 1.0
             loaded = LoadedFilter(
@@ -177,10 +217,15 @@ def main(argv: list[str] | None = None) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 1
 
+    def resolve_eq_response(fft_size: int, output_rate: int):
+        """EQ baked into the filter spectrum: --eq-profile wins; otherwise
+        config.json's eqEnabled/eqProfilePath, re-read on every RELOAD."""
+        return _resolve_eq(args.eq_profile, args.config_path, fft_size,
+                           output_rate)
+
     try:
         eq_response, eq_desc = resolve_eq_response(
-            args.eq_profile, args.config_path, loaded.sidecar.fft_size,
-            input_rate * loaded.ratio)
+            loaded.sidecar.fft_size, input_rate * loaded.ratio)
     except (OSError, ValueError) as e:
         if args.eq_profile:
             print(f"error: --eq-profile: {e}", file=sys.stderr)
@@ -190,9 +235,12 @@ def main(argv: list[str] | None = None) -> int:
     if eq_desc:
         print(f"EQ profile baked in: {eq_desc}", file=sys.stderr)
 
-    pcm_eligible = fmt is PcmFormat.S16_LE
+    # On-device s16 quantization; the crossfeed chain keeps the float path
+    # (its post stage lives outside the upsampler).
+    pcm_eligible = fmt is PcmFormat.S16_LE and not args.crossfeed
     if args.device_pcm == "on" and not pcm_eligible:
-        print("error: --device-pcm on requires --format s16", file=sys.stderr)
+        print("error: --device-pcm on requires --format s16 and no "
+              "--crossfeed", file=sys.stderr)
         return 2
     device_pcm_on = args.device_pcm != "off" and pcm_eligible
 
@@ -208,6 +256,21 @@ def main(argv: list[str] | None = None) -> int:
     if device_pcm_on:
         print("Device PCM: s16 quantization on-device"
               + (" (TPDF dither)" if args.dither else ""), file=sys.stderr)
+    if args.crossfeed:
+        from totton_tpu_torch.engine.chain import CrossfeedChain
+        from totton_tpu_torch.engine.crossfeed import (
+            CrossfeedFilter,
+            CrossfeedProcessor,
+        )
+
+        if source.channels != 2:
+            print("error: --crossfeed requires stereo input", file=sys.stderr)
+            return 2
+        cf = CrossfeedProcessor(CrossfeedFilter.load(args.crossfeed),
+                                device=device)
+        engine = CrossfeedChain(engine, cf)
+        print(f"Crossfeed enabled: {args.crossfeed} "
+              f"({cf.filter.taps} taps/channel)", file=sys.stderr)
     try:
         # Device-PCM mode: the engine's samples are final — the sink must
         # not re-dither them.
@@ -217,7 +280,8 @@ def main(argv: list[str] | None = None) -> int:
         print(f"error: cannot open output {out_spec}: {e}", file=sys.stderr)
         return 1
 
-    session = StreamSession(
+    session_cls = ThreadedStreamSession if args.threaded else StreamSession
+    session = session_cls(
         source, sink, engine,
         period_frames=args.period,
         max_batch_blocks=args.batch_blocks,
@@ -237,6 +301,96 @@ def main(argv: list[str] | None = None) -> int:
 
     old_handlers = {s: signal.signal(s, handle_signal)
                     for s in (signal.SIGINT, signal.SIGTERM)}
+
+    # In-process control plane (leader role: one process): RELOAD,
+    # PHASE_TYPE_SET and SOFT_RESET act on the live engine.
+    daemon = None
+    if args.control_endpoint:
+        from totton_tpu.control.daemon import ControlDaemon
+
+        # Filter/EQ swaps act on the inner upsampler (the chain's post
+        # stage is filter-agnostic), but SOFT_RESET clears the OUTERMOST
+        # engine: with --crossfeed the chain carries its own pending/FIFO
+        # audio that engine.reset() flushes and upsampler.reset() would
+        # leave stale.
+        upsampler = getattr(engine, "upsampler", engine)
+        current_phase = {"value": phase}
+        startup_phase = phase
+
+        def reload_filter(phase: str) -> dict:
+            # A pinned --filter stays pinned across RELOADs (the reload
+            # then re-reads EQ/config); directory lookup serves auto
+            # lookup or a phase change.
+            if args.filter and phase == startup_phase:
+                path = args.filter
+            else:
+                path = resolve_filter_path(
+                    filter_path=None, filter_dir=args.filter_dir, phase=phase,
+                    ratio=upsampler.ratio, input_rate=input_rate,
+                    latency=args.latency)
+            try:
+                eq, desc = resolve_eq_response(
+                    upsampler.config.fft_size, input_rate * upsampler.ratio)
+            except (OSError, ValueError) as e:
+                # A bad or missing EQ file must not take down a live
+                # stream: reload the filter clean and report.
+                print(f"Live reload: EQ skipped ({e})", file=sys.stderr)
+                eq, desc = None, None
+            upsampler.load_filter(load_filter(path), eq_response=eq)
+            print(f"Live reload: {path}" + (f" + EQ {desc}" if desc else ""),
+                  file=sys.stderr)
+            return {}
+
+        def on_reload(apply_at_step: int | None = None) -> dict:
+            # config.json is the durable truth: RELOAD adopts its
+            # filter.phaseType, and alsa.dither is live too. In device-PCM
+            # mode the engine owns quantization, so the toggle targets it;
+            # otherwise the sink.
+            if args.config_path:
+                ph = read_config_phase(args.config_path)
+                if ph is not None and ph != current_phase["value"]:
+                    current_phase["value"] = ph
+                    if daemon is not None:
+                        daemon.phase_type = ph
+                from totton_tpu.web.services.config import load_config
+
+                settings = load_config(Path(args.config_path))
+                if settings.alsa and settings.alsa.dither is not None:
+                    quantizer = upsampler if device_pcm_on else sink
+                    if quantizer.set_dither(bool(settings.alsa.dither)):
+                        print("Live dither: "
+                              + ("on" if settings.alsa.dither else "off"),
+                              file=sys.stderr)
+            return reload_filter(current_phase["value"])
+
+        def on_phase_change(phase: str,
+                            apply_at_step: int | None = None) -> dict:
+            # Reload first: if the swap fails, the error reaches the daemon
+            # (INTERNAL reply) and neither the phase nor config.json moves.
+            extra = reload_filter(phase)
+            current_phase["value"] = phase
+            persist_phase(phase, args.config_path, True)
+            return extra
+
+        daemon = ControlDaemon(
+            endpoint=args.control_endpoint,
+            pub_endpoint=args.control_pub_endpoint,
+            on_reload=on_reload,
+            on_soft_reset=engine.reset,
+            on_phase_change=on_phase_change,
+            stats_path=args.stats_path,
+            phase_type=current_phase["value"],
+        )
+        daemon.start()
+        print(f"Control endpoint: {args.control_endpoint}"
+              + (f" (publishing on {args.control_pub_endpoint})"
+                 if args.control_pub_endpoint else ""), file=sys.stderr)
+        threading.Thread(
+            target=lambda: (daemon.wait_for_shutdown(), session.stop()),
+            daemon=True, name="totton-shutdown-watch",
+        ).start()
+
+    max_frames = int(args.duration * input_rate) if args.duration else None
     dev_name = (torch.cuda.get_device_name(device) if device.type == "cuda"
                 else str(device))
     print("Streaming started "
@@ -244,8 +398,10 @@ def main(argv: list[str] | None = None) -> int:
           f"{source.channels}ch, ratio {engine.ratio}, device {dev_name})",
           file=sys.stderr)
     try:
-        stats = session.run()
+        stats = session.run(max_frames=max_frames)
     finally:
+        if daemon is not None:
+            daemon.stop()
         source.close()
         sink.close()
         for s, h in old_handlers.items():
@@ -254,6 +410,15 @@ def main(argv: list[str] | None = None) -> int:
     print(f"frames_in={stats.frames_in} frames_out={stats.frames_out} "
           f"blocks={stats.blocks_processed} "
           f"realtime_factor={stats.realtime_factor:.1f}x", file=sys.stderr)
+    if stats.transport_errors:
+        # A mid-stream RST is not a clean stop: report it and exit nonzero
+        # so supervisors restart the pipeline. A stream whose every fault
+        # a reconnect splice answered still counts as success.
+        print(f"transport errors: {stats.transport_errors} "
+              f"(reconnects: {stats.reconnects}; "
+              f"last: {stats.last_transport_error})", file=sys.stderr)
+        if stats.reconnects < stats.transport_errors:
+            return 1
     return 0
 
 

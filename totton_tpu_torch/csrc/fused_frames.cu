@@ -17,7 +17,13 @@
 //                         absorbed (ratio >= 4): W1 = GW, the filter, the
 //                         spectrum tiling and the inter-stage twiddle folded
 //                         in once per filter swap; folded (2x): W1 = W_P2^+,
-//                         the filter multiplied in F2 and tw_h applied here
+//                         the filter multiplied in F2 and tw_h applied here;
+//                         ratio 1 (h = m/2): the folded form, but Z = E*G1 +
+//                         E2*G2 reads both halves of the spectrum, so F2
+//                         multiplies bin k by g[k] = (G1 | G2)[k] and I1's
+//                         loader sums bins k and k + h: with k = s*Q2 + q2,
+//                         k + h = (s + P2)*Q2 + q2, the same q2 row of X at
+//                         s + P2 (depth P2, row stride r = 2*P2)
 //   I2  inverse stage 2:  z[n, j] = sum_q2 C[n,q2,k1'] W_Q2^+[q2, k2'] only for
 //                         the kept columns k2' >= j0 / P2 (the overlap region
 //                         is never computed); out[n, 2(j-j0)+e] written
@@ -79,6 +85,23 @@ struct RowLoader {
   }
 };
 
+// I1's A at ratio 1: the two halves of the spectrum summed,
+// p[bat*sb + row*ld + k] + p[bat*sb + row*ld + k + half] (no two threads
+// write one value, so no atomics).
+struct HalfSumLoader {
+  const float2* p;
+  i64 sb;
+  int ld, half;
+  static constexpr bool kRowFast = false;
+  static constexpr bool kRealA = false;
+  __device__ float2 operator()(int bat, int row, int k) const {
+    const float2* a = p + bat * sb + (i64)row * ld + k;
+    const float2 lo = a[0];
+    const float2 hi = a[half];
+    return make_float2(lo.x + hi.x, lo.y + hi.y);
+  }
+};
+
 // I2's A: C stored [n][q2][k1'], row = n*P2 + k1' (P2 = 1 << p2_shift),
 // k = q2 -> c[(n*Q2 + q2)*P2 + k1']; consecutive rows are contiguous.
 struct InvStage2Loader {
@@ -126,7 +149,8 @@ struct FwdStage1Store {
 // X[n, q2, s] = v (* g[k]).
 struct FwdStage2Store {
   float2* x;
-  const float2* g;  // folded path: filter G in natural order, else null
+  const float2* g;  // folded path: filter G in natural order (ratio 1:
+                    // G1 then G2, m bins), else null
   int m, P, Q2, r;
   static constexpr bool kRowFast = false;
   __device__ void operator()(int, int row, int col, float2 v) const {
@@ -283,7 +307,8 @@ extern "C" int totton_fused_frames(
     const float2* g_nat, const float2* w1, long long w1_batch_stride,
     const float2* tw_h, const float2* w2,
     int n_frames, int m, int P, int Q, int P2, int Q2, int r,
-    int kept, int k2_0, int j0, int block, int p2_shift, void* stream_ptr) {
+    int kept, int k2_0, int j0, int block, int p2_shift, int halves,
+    void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   // F1: rows (n, q), depth p, cols k1.
   launch(FrameLoader{frames, m, Q}, ColLoader{w_p, 0, P},
@@ -293,10 +318,16 @@ extern "C" int totton_fused_frames(
   launch(RowLoader{scratch_b, 0, Q}, ColLoader{w_q, 0, Q},
          FwdStage2Store{scratch_x, g_nat, m, P, Q2, r},
          n_frames * P, Q, Q, 1, stream);
-  // I1: batch q2, rows n, depth s (r = m / Q2), cols k1'.
-  launch(RowLoader{scratch_x, r, m}, ColLoader{w1, w1_batch_stride, P2},
-         InvStage1Store{scratch_c, tw_h, P2, Q2},
-         n_frames, P2, r, Q2, stream);
+  // I1: batch q2, rows n, depth s (r = m / Q2; P2 at ratio 1), cols k1'.
+  if (halves) {
+    launch(HalfSumLoader{scratch_x, r, m, P2}, ColLoader{w1, 0, P2},
+           InvStage1Store{scratch_c, tw_h, P2, Q2},
+           n_frames, P2, P2, Q2, stream);
+  } else {
+    launch(RowLoader{scratch_x, r, m}, ColLoader{w1, w1_batch_stride, P2},
+           InvStage1Store{scratch_c, tw_h, P2, Q2},
+           n_frames, P2, r, Q2, stream);
+  }
   // I2: rows (n, k1'), depth q2, kept cols k2'.
   launch(InvStage2Loader{scratch_c, p2_shift, Q2}, ColLoader{w2, 0, kept},
          OutStore{out, p2_shift, block, j0, k2_0},

@@ -151,10 +151,11 @@ class StreamingUpsampler:
             self._host_ditherer = TpdfDitherer(self._pcm_seed)
 
     def _checked_config(self, filt: LoadedFilter) -> OverlapSaveConfig:
-        """The filter's geometry; on CUDA, refuses up front what the frame
-        kernel does not run (ratio 1, odd overlap)."""
+        """The filter's geometry; on CUDA, refuses up front a geometry
+        outside the frame kernel's range (an odd overlap runs the classic
+        program instead)."""
         cfg = OverlapSaveConfig.from_sidecar(filt.sidecar)
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and cfg.overlap % 2 == 0:
             from totton_tpu_torch.ops.fused_frames import kernel_plan
 
             kernel_plan(cfg)
@@ -199,6 +200,22 @@ class StreamingUpsampler:
         if self._swap_fade_frames and self._fade_from is None:
             self._fade_from = old_bundle
             self._fade_pos = 0
+
+    def set_dither(self, enabled: bool) -> bool:
+        """Swap output dithering live (device-PCM mode only; in float mode
+        quantization, and so dither, belongs to the sink). Mirrors
+        AudioSink.set_dither so the CLI's RELOAD path can target whichever
+        side owns the quantizer. Returns False when the engine does not
+        quantize."""
+        if self.device_pcm is None:
+            return False
+        with self._lock:
+            self._pcm_dither = bool(enabled)
+            if enabled and self._host_ditherer is None:
+                from totton_tpu.io.pcm import TpdfDitherer
+
+                self._host_ditherer = TpdfDitherer(self._pcm_seed)
+        return True
 
     def set_eq(self, eq_response: np.ndarray | None) -> None:
         """Hot-swap the EQ baked into the filter spectrum (folds a new

@@ -1,13 +1,13 @@
 """Streaming session on the port: source -> ring -> engine -> ring -> sink.
 
-A copy of ``totton_tpu.io.stream``'s ``StreamStats``, ``_EnginePipeline``
-and ``StreamSession`` (file mode and the synchronous live loop), carried
+A copy of ``totton_tpu.io.stream`` (``StreamStats``, ``_EnginePipeline``,
+``StreamSession`` and the live-mode ``ThreadedStreamSession``), carried
 because that module imports the JAX engine at its top and so loads jax.
-It duck-types its engine, so it drives the port's
-``engine.upsampler.StreamingUpsampler`` unchanged. ``ThreadedStreamSession``
-is not ported yet. The copy stays: the JAX package is the frozen reference,
-so its imports will not become lazy. ``tests/test_torch_copies.py`` holds
-the copy to the reference outside its listed seams.
+The sessions duck-type their engine, so they drive the port's
+``StreamingUpsampler`` and ``CrossfeedChain`` unchanged. The copy stays:
+the JAX package is the frozen reference, so its imports will not become
+lazy. ``tests/test_torch_copies.py`` holds the copy to the reference
+outside its listed seams.
 
 Period-sized reads are decoupled from filter-block-sized dispatches by
 ring buffers; offline sources accumulate deep dispatches
@@ -218,13 +218,16 @@ def _warm_up(engine: StreamingUpsampler, channels: int, block_in: int,
     """Run the dispatch shapes a low-latency stream will hit before the
     first sample arrives (the kernel library builds at first use, and the
     first dispatch of each shape allocates), then reset the engine. The
-    crossfade's partial shapes are part of the set."""
+    crossfade's partial shapes are part of the set: a CrossfeedChain
+    delegates dispatch to its inner upsampler, so that one is probed for
+    the fade, as the reference does."""
     shapes = {1, max_batch_blocks}
-    fade = getattr(engine, "_swap_fade_frames", 0)
+    inner = getattr(engine, "upsampler", engine)
+    fade = getattr(inner, "_swap_fade_frames", 0)
     if fade:
         from totton_tpu_torch.engine.upsampler import fade_warm_widths
 
-        shapes.update(fade_warm_widths(fade, engine.config.block_size))
+        shapes.update(fade_warm_widths(fade, inner.config.block_size))
     for nblocks in sorted(shapes):
         engine.process_block(
             np.zeros((channels, nblocks * block_in), np.float32))
@@ -480,3 +483,226 @@ class StreamSession:
         self._pipeline.flush()
         self._write_stats()
         return self.stats
+
+
+class ThreadedStreamSession:
+    """Live-mode pump: feeder and drainer threads decouple endpoint IO from
+    device dispatch (the reference's SPSC producer/consumer design,
+    include/io/audio_ring_buffer.h — here actually on separate threads; the
+    reference runs both sides on one thread, alsa_streamer_main.cpp:473-493).
+
+    Thread layout:
+      feeder:  source.read_frames -> input ring  (overflow: drop + count;
+               clear() is unsafe cross-thread on an SPSC ring)
+      main:    input ring -> engine.process_block -> output ring
+      drainer: output ring -> sink.write_frames
+    """
+
+    def __init__(
+        self,
+        source: AudioSource,
+        sink: AudioSink,
+        engine: StreamingUpsampler,
+        period_frames: int = 4096,
+        buffer_blocks: int = 8,
+        max_batch_blocks: int | None = None,
+        stats_path: str | None = None,
+        pipeline_depth: int | None = None,
+    ) -> None:
+        self.source = source
+        self.sink = sink
+        self.engine = engine
+        block_in = (getattr(engine, "local_block_input_frames", None)
+                    or engine.block_input_frames)
+        self.block_input_frames = block_in
+        self.period_frames = max(1, min(period_frames, block_in))
+        self.channels = (getattr(engine, "local_channels", None)
+                         or engine.channels)
+        low_latency = _is_low_latency(source)
+        if max_batch_blocks is None:
+            max_batch_blocks = _auto_batch_blocks(source, 8)
+        self.max_batch_blocks = max(1, max_batch_blocks)
+        self._low_latency = low_latency
+        self._dispatch_threshold = 1 if low_latency else self.max_batch_blocks
+        depth = max(3, buffer_blocks, self.max_batch_blocks + 2)
+        cap_in = max(block_in, self.period_frames) * depth
+        # The output ring does NOT scale with dispatch depth: _emit writes
+        # in ring-sized chunks with backpressure (the drainer frees space
+        # concurrently), so a deep offline dispatch doesn't force a
+        # proportionally deep (hundreds of MB) output allocation.
+        cap_out = engine.config.block_size * max(3, buffer_blocks)
+        self._in_ring = make_ring_buffer(cap_in * self.channels)
+        self._out_ring = make_ring_buffer(cap_out * self.channels)
+        self.stats = StreamStats(
+            input_rate=source.sample_rate or 0,
+            output_rate=(source.sample_rate or 0) * engine.ratio,
+        )
+        self._stats_path = stats_path
+        # Device-PCM mode: the engine emits int16 sample values. They ride
+        # the float32 output ring as their EXACT float32 representations
+        # (|int16| <= 2^15 << 2^24, the f32 integer-exact range); the
+        # drainer converts back and hands the sink packed samples.
+        self._pcm_scale = (32768.0 if getattr(engine, "device_pcm", None)
+                           is not None else None)
+        self._stop = threading.Event()
+        self._feed_done = threading.Event()
+        self._compute_done = threading.Event()
+        self._pipeline = _EnginePipeline(
+            engine, self.stats, block_in, self._emit_output, pipeline_depth)
+        if low_latency:
+            _warm_up(engine, self.channels, block_in, self.max_batch_blocks)
+
+    def stop(self) -> None:
+        self._stop.set()
+
+    def _feeder(self, max_frames: int | None) -> None:
+        remaining = max_frames
+        try:
+            while not self._stop.is_set():
+                want = self.period_frames
+                if remaining is not None:
+                    want = min(want, remaining)
+                    if want == 0:
+                        break
+                chunk = self.source.read_frames(want)
+                got = chunk.shape[1]
+                if got == 0:
+                    break
+                self.stats.add_frames_in(got)
+                if remaining is not None:
+                    remaining -= got
+                flat = chunk.T.ravel()
+                while not self._in_ring.write(flat):
+                    if self._stop.is_set():
+                        return
+                    if getattr(self.source, "realtime", False):
+                        # Real-time capture can't wait: drop the chunk.
+                        self.stats.count_input_overflow()
+                        break
+                    # File/pipe sources just wait for the compute side.
+                    time.sleep(0.001)
+        finally:
+            self._feed_done.set()
+
+    def _drainer(self) -> None:
+        while True:
+            avail = self._out_ring.available_to_read()
+            avail -= avail % self.channels
+            if avail:
+                flat = self._out_ring.read(avail)
+                frames = flat.reshape(-1, self.channels).T
+                try:
+                    if self._pcm_scale is not None:
+                        self.sink.write_quantized(frames.astype(np.int16))
+                    else:
+                        self.sink.write_frames(frames)
+                except SinkClosedError:
+                    # Departed consumer: stop the whole session cleanly
+                    # (feeder and main loop watch the same event; _write_out
+                    # bails on it too, so nothing deadlocks on a full ring).
+                    self._stop.set()
+                    return
+                self.stats.add_frames_out(frames.shape[1])
+            elif self._compute_done.is_set():
+                return
+            elif self._stop.is_set() and not avail:
+                return
+            else:
+                time.sleep(0.001)
+
+    def _emit(self, frames: np.ndarray, valid_in: int) -> None:
+        self._pipeline.submit(frames, valid_in)
+
+    def _emit_output(self, y: np.ndarray, valid_in: int) -> None:
+        out = y[:, : valid_in * self.engine.ratio]
+        self.stats.meter_output(out, scale=self._pcm_scale)
+        self._write_out(out.T.ravel())
+
+    def _write_out(self, flat: np.ndarray) -> None:
+        """Backpressured output-ring write in whatever-fits chunks.
+
+        Chunking keeps the ring small — it doesn't have to admit a whole
+        max_batch_blocks dispatch at once — which means a deep OFFLINE
+        dispatch fills the ring by design; that is healthy backpressure,
+        not an xrun, and counts nothing. Only LOW-LATENCY sessions count
+        output overflows (a stalled realtime sink means audio is falling
+        behind the clock — reference ring-overflow semantics,
+        alsa_streamer_main.cpp:557-562, minus the drop: the drainer owns
+        the sink, so waiting is safe), and at most ONE per dispatch's
+        stalled episode, never one per 2 ms polling iteration.
+        """
+        n = len(flat)
+        pos = 0
+        counted = False
+        while pos < n:
+            room = self._out_ring.available_to_write()
+            room -= room % self.channels  # keep frames whole for the drainer
+            take = min(n - pos, room)
+            if take and self._out_ring.write(flat[pos:pos + take]):
+                pos += take
+                continue
+            if self._stop.is_set():
+                return
+            if self._low_latency and not counted:
+                counted = True
+                self.stats.count_output_overflow()
+            time.sleep(0.002)
+
+    def run(self, max_frames: int | None = None) -> StreamStats:
+        block_in = self.block_input_frames
+        feeder = threading.Thread(
+            target=self._feeder, args=(max_frames,), name="totton-feeder"
+        )
+        drainer = threading.Thread(target=self._drainer, name="totton-drainer")
+        feeder.start()
+        drainer.start()
+        try:
+            while True:
+                avail = self._in_ring.available_to_read() // self.channels
+                ready = avail // block_in
+                feed_done = self._feed_done.is_set()
+                if ready and (ready >= self._dispatch_threshold or feed_done):
+                    nblocks = _quantize_nblocks(
+                        ready, self.max_batch_blocks, self._low_latency)
+                    flat = self._in_ring.read(
+                        nblocks * block_in * self.channels
+                    )
+                    self._emit(
+                        flat.reshape(-1, self.channels).T, nblocks * block_in
+                    )
+                    self._write_stats()
+                elif feed_done:
+                    left = self._in_ring.available_to_read() // self.channels
+                    if left:
+                        flat = self._in_ring.read(left * self.channels)
+                        frames = flat.reshape(-1, self.channels).T
+                        self._emit(
+                            np.pad(frames, [(0, 0), (0, block_in - left)]),
+                            left,
+                        )
+                    break
+                elif self._stop.is_set():
+                    break
+                else:
+                    if self._low_latency:
+                        # Input-starved live session: drain in-flight
+                        # steps instead of retaining completed audio (the
+                        # device is source-paced anyway; output latency
+                        # stays at one dispatch, not PIPELINE_DEPTH).
+                        # Offline sessions keep the pipeline primed — a
+                        # momentary feeder lag must not serialize the
+                        # next deep batch behind a full drain.
+                        self._pipeline.flush()
+                    time.sleep(0.001)
+        finally:
+            # Drain in-flight pipelined steps BEFORE signaling the drainer
+            # (it exits once compute is done and its ring is empty).
+            self._pipeline.flush()
+            self._compute_done.set()
+            feeder.join(timeout=10)
+            drainer.join(timeout=10)
+            self.stats.fold_endpoint_faults(self.source, self.sink)
+            self._write_stats()
+        return self.stats
+
+    _write_stats = StreamSession._write_stats

@@ -1,9 +1,12 @@
 """Matmul DFT in torch: the plain counterpart of ``totton_tpu.ops.fft``.
 
-Only what the plain frame path needs is ported: the host constant builders
-(numpy, float64 angles with the exact ``(j*k) % n`` reduction, cast to
-float32 — identical to the JAX package's) and the forward transforms as
-``torch.einsum``. Spectra are (re, im) float32 pairs, as in the reference.
+The host constant tables (numpy, float64 angles with the exact
+``(j*k) % n`` reduction, cast to float32 — identical to the JAX
+package's), the forward real transforms of the frame programs, and the
+complex ``fft2``/``ifft2`` and real ``rfft2``/``irfft2`` (half-size
+complex DFT plus untangle) that the classic odd-overlap program and the
+crossfeed step share, all as fp32 ``torch.einsum`` (TF32 stays off).
+Spectra are (re, im) float32 pairs, as in the reference.
 
 For N = P * Q (x[n], n = Q*p + q): reshape to A[p, q], DFT over p, twiddle
 by W_N^{k1 q}, DFT over q; the natural-order bin is k = k2*P + k1.
@@ -157,6 +160,96 @@ def fft2_real(x: torch.Tensor, n: int | None = None):
     if n == 1:
         return x, torch.zeros_like(x)
     return _fft_rec_real(x, _factorize(n))
+
+
+def _pad_last(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Zero-pad or cut the last axis to n."""
+    if x.shape[-1] < n:
+        return torch.nn.functional.pad(x, (0, n - x.shape[-1]))
+    return x[..., :n]
+
+
+def fft2(xr: torch.Tensor, xi: torch.Tensor, n: int | None = None):
+    """Complex DFT on a (re, im) pair along the last axis."""
+    if n is None:
+        n = xr.shape[-1]
+    xr = _pad_last(xr.to(torch.float32), n)
+    xi = _pad_last(xi.to(torch.float32), n)
+    if n == 1:
+        return xr, xi
+    return _fft_rec(xr, xi, _factorize(n), inverse=False)
+
+
+def ifft2(xr: torch.Tensor, xi: torch.Tensor, n: int | None = None):
+    """Inverse complex DFT on a pair (normalized by 1/n)."""
+    if n is None:
+        n = xr.shape[-1]
+    xr = _pad_last(xr.to(torch.float32), n)
+    xi = _pad_last(xi.to(torch.float32), n)
+    if n == 1:
+        return xr, xi
+    yr, yi = _fft_rec(xr, xi, _factorize(n), inverse=True)
+    s = np.float32(1.0 / n)
+    return yr * s, yi * s
+
+
+@functools.lru_cache(maxsize=128)
+def _rfft_untangle(n: int):
+    """(Ar, Ai, Br, Bi) untangling twiddles of the half-size real trick:
+    for z[m] = x[2m] + i x[2m+1] and Z = fft(z, n/2),
+    X[k] = A[k] Z[k] + B[k] conj(Z[(n/2 - k) mod n/2]), k = 0..n/2, with
+    A[k] = (1 - i W_n^k)/2 and B[k] = (1 + i W_n^k)/2."""
+    k = np.arange(n // 2 + 1)
+    w = np.exp(-2j * np.pi * k / n)
+    a = 0.5 * (1.0 - 1j * w)
+    b = 0.5 * (1.0 + 1j * w)
+    return tuple(v.astype(np.float32) for v in (a.real, a.imag, b.real,
+                                                b.imag))
+
+
+def rfft2(x: torch.Tensor, n: int | None = None):
+    """Real DFT along the last axis -> (re, im) with n//2 + 1 bins (one
+    complex DFT of n/2 on the (even, odd) pairs, then the untangle)."""
+    if n is None:
+        n = x.shape[-1]
+    x = _pad_last(x.to(torch.float32), n)
+    if n == 1:
+        return x, torch.zeros_like(x)
+    half = n // 2
+    zr, zi = fft2(x[..., 0::2], x[..., 1::2], half)
+    # Extend to half+1 bins (Z[half] = Z[0]) and build conj(Z[half - k]).
+    zr_ext = torch.cat([zr, zr[..., :1]], dim=-1)
+    zi_ext = torch.cat([zi, zi[..., :1]], dim=-1)
+    zr_rev = torch.cat([zr[..., :1], torch.flip(zr[..., 1:], (-1,)),
+                        zr[..., :1]], dim=-1)
+    zi_rev = -torch.cat([zi[..., :1], torch.flip(zi[..., 1:], (-1,)),
+                         zi[..., :1]], dim=-1)
+    ar, ai, br, bi = device_consts(_rfft_untangle, (n,), x.device)
+    t1r, t1i = complex_mul(zr_ext, zi_ext, ar, ai)
+    t2r, t2i = complex_mul(zr_rev, zi_rev, br, bi)
+    return t1r + t2r, t1i + t2i
+
+
+def irfft2(xr: torch.Tensor, xi: torch.Tensor, n: int) -> torch.Tensor:
+    """Inverse real DFT of n//2 + 1 bins -> n real samples."""
+    if xr.shape[-1] != n // 2 + 1:
+        raise ValueError(
+            f"irfft2 expects {n // 2 + 1} bins for n={n}, got {xr.shape[-1]}"
+        )
+    if n == 1:
+        return xr[..., :1].to(torch.float32)
+    half = n // 2
+    ar, ai, br, bi = device_consts(_rfft_untangle, (n,), xr.device)
+    # Invert the untangle: Z[k] = conj(A[k]) X[k] + conj(B[k]) conj(X[n/2-k]).
+    xrr = torch.flip(xr, (-1,))
+    xir = -torch.flip(xi, (-1,))
+    t1r, t1i = complex_mul(xr, xi, ar, -ai)
+    t2r, t2i = complex_mul(xrr, xir, br, -bi)
+    zr = (t1r + t2r)[..., :half]
+    zi = (t1i + t2i)[..., :half]
+    yr, yi = ifft2(zr, zi, half)
+    # Re-interleave even/odd: out[2m] = yr[m], out[2m+1] = yi[m].
+    return torch.stack([yr, yi], dim=-1).reshape(xr.shape[:-1] + (n,))
 
 
 def fft2_real_split_stacked(x: torch.Tensor, n: int):

@@ -32,7 +32,6 @@ from totton_tpu_torch.ops import fft as _fft
 from totton_tpu_torch.ops.overlap_save import (
     FoldedBundle,
     OverlapSaveConfig,
-    _inv_split,
     _stage2_matrix,
     absorbed_plan,
     upsample_frames,
@@ -43,35 +42,50 @@ from totton_tpu_torch.ops.overlap_save import (
 LAUNCHES = 0
 
 
+def _two_stage(n: int) -> tuple[int, int] | None:
+    """(P, Q) split of a power-of-two n for the kernel's two GEMM stages:
+    the plain path's factorization where it has two stages, a balanced
+    power-of-two split where one DFT stage would do (n <= 512); any split
+    computes the same DFT."""
+    factors = _fft._factorize(n)
+    if len(factors) == 2:
+        return factors
+    if len(factors) == 1 and n >= 4:
+        p = 1 << (n.bit_length() // 2)
+        return p, n // p
+    return None
+
+
 @functools.lru_cache(maxsize=64)
 def kernel_plan(cfg: OverlapSaveConfig) -> dict:
-    """Static sizes the kernel runs with for ``cfg`` (ratio >= 2). The forward split may differ from the plain path's: any
-    m = P*Q computes the same DFT."""
-    if cfg.ratio < 2:
+    """Static sizes the kernel runs with for ``cfg`` (every ratio, even
+    overlap). The splits may differ from the plain path's. At ratio 1
+    (``halves``) I1 sums the spectrum's two halves: depth P2, X's row
+    stride r = 2*P2."""
+    if cfg.overlap % 2 != 0:
         # (Odd overlaps exist only at ratio 1: (taps - 1) % ratio == 0.)
         raise NotImplementedError(
-            "ratio 1 on CUDA is not ported yet (ROADMAP queue A)")
+            "odd overlap (even tap count) runs the classic program, not the "
+            "frame kernel (as in the JAX package)")
     m = cfg.frame_in
     h = cfg.fft_size // 2
-    factors = _fft._factorize(m)
-    if len(factors) == 2:
-        p, q = factors
-    elif len(factors) == 1 and m >= 4:
-        p = 1 << (m.bit_length() // 2)
-        q = m // p
-    else:
+    fwd = _two_stage(m)
+    if fwd is None:
         raise NotImplementedError(f"frame_in {m} outside the kernel's range")
+    p, q = fwd
     plan = absorbed_plan(cfg)
-    split = plan[:2] if plan is not None else _inv_split(h)
+    split = plan[:2] if plan is not None else _two_stage(h)
     if split is None or m % split[1] != 0:
         raise NotImplementedError(f"fft_size {cfg.fft_size} outside the "
                                   "kernel's range")
     p2, q2 = split
     j0 = cfg.overlap // 2
     k2_0 = j0 // p2
-    return dict(m=m, P=p, Q=q, h=h, P2=p2, Q2=q2, r=m // q2, kept=q2 - k2_0,
+    halves = cfg.ratio == 1
+    return dict(m=m, P=p, Q=q, h=h, P2=p2, Q2=q2, r=m // q2,
+                depth_i1=p2 if halves else m // q2, kept=q2 - k2_0,
                 k2_0=k2_0, j0=j0, block=cfg.block_size,
-                absorbed=plan is not None)
+                absorbed=plan is not None, halves=halves)
 
 
 def _complex(builder, *args) -> tuple[np.ndarray]:
@@ -107,12 +121,13 @@ def kernel_consts(cfg: OverlapSaveConfig, device) -> dict[str, torch.Tensor]:
 def flops_per_launch(cfg: OverlapSaveConfig) -> dict[str, int]:
     """Real FLOPs per frame of each of the kernel's four complex products,
     keyed F1, F2, I1, I2 (8 per complex multiply-add; F1 counted as real
-    input, 4 per MAC)."""
+    input, 4 per MAC; the ratio-1 sum of halves in I1's loader is not
+    counted)."""
     pl = kernel_plan(cfg)
     return {
         "F1": 4 * pl["m"] * pl["P"],
         "F2": 8 * pl["m"] * pl["Q"],
-        "I1": 8 * pl["h"] * pl["r"],
+        "I1": 8 * pl["h"] * pl["depth_i1"],
         "I2": 8 * pl["P2"] * pl["Q2"] * pl["kept"],
     }
 
@@ -128,7 +143,7 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = ([vp] * 10 + [ctypes.c_longlong] + [vp] * 2
-                       + [i32] * 12 + [vp])
+                       + [i32] * 13 + [vp])
         fn.restype = i32
         lib.totton_cuda_error_string.argtypes = [i32]
         lib.totton_cuda_error_string.restype = ctypes.c_char_p
@@ -158,6 +173,8 @@ def _launch_cuda(frames: torch.Tensor, bundle: FoldedBundle,
     w = bundle.weights
     if pl["absorbed"]:
         _check(w, "bundle.weights", dev, (pl["Q2"], pl["r"], pl["P2"], 2))
+    elif pl["halves"]:
+        _check(w, "bundle.weights", dev, (2, pl["h"], 2))
     else:
         _check(w, "bundle.weights", dev, (pl["h"], 2))
     out = torch.empty((n, pl["block"]), dtype=torch.float32, device=dev)
@@ -182,7 +199,7 @@ def _launch_cuda(frames: torch.Tensor, bundle: FoldedBundle,
         consts["w2"].data_ptr(),
         n, pl["m"], pl["P"], pl["Q"], pl["P2"], pl["Q2"], pl["r"],
         pl["kept"], pl["k2_0"], pl["j0"], pl["block"],
-        pl["P2"].bit_length() - 1, stream)
+        pl["P2"].bit_length() - 1, int(pl["halves"]), stream)
     if rc != 0:
         msg = lib.totton_cuda_error_string(rc).decode()
         raise RuntimeError(f"fused_frames launch failed: {msg} ({rc})")

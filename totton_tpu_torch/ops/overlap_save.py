@@ -8,22 +8,26 @@ multiply collapse into Z = E*G, and a pruned half-size inverse emits the
 even/odd interleaved output block without ever computing the overlap
 region.
 
-Two frame programs, chosen by geometry:
+Three frame programs, chosen by geometry:
 
 - **absorbed** (ratio >= 4): tiling, filter and inverse stage 1 collapse
   into one weight tensor GW[k1, s, q] (``_absorbed_stacked``); stage 2 is
   pruned and writes the interleave directly.
-- **folded** (ratio 2, and ratio 1 on the CPU): Z = tile(X)*G, then
+- **folded** (ratio 2 and ratio 1): Z = tile(X)*G, then
   ``_pruned_half_inverse``.
+- **classic** (odd overlap, i.e. an even tap count at ratio 1): rfft,
+  periodic extension, times the spectrum, irfft, discard the overlap
+  (``_upsample_frames_classic``).
 
 Unlike the JAX package, the spectrum fold runs once per filter or EQ swap
 (``fold_bundle``), not once per dispatch: the step takes
-``(tail, x, bundle)``. Odd overlaps (even tap counts) need the classic
-rfft/irfft path, which is not ported yet and raises NotImplementedError.
+``(tail, x, bundle)``.
 
 ``upsample_frames`` here is the plain version. The main path calls
 ``ops.fused_frames.fused_upsample_frames``, which runs the hand-written
-CUDA kernel on a CUDA tensor and this plain version on a CPU tensor.
+CUDA kernel on a CUDA tensor and this plain version on a CPU tensor; the
+classic program is plain torch on every device, as the JAX package's
+Pallas kernel never took it.
 """
 
 from __future__ import annotations
@@ -177,11 +181,19 @@ def _fold_g(spectrum, fft_size: int):
     return g1, g2
 
 
-def _inv_split(h: int) -> tuple[int, int] | None:
-    """Balanced (P2, Q2) factorization of the half-size inverse, or None
-    when it is not two-stage."""
-    factors = _fft._factorize(h)
-    return factors if len(factors) == 2 else None
+def _periodic_rfft_extend(sr: torch.Tensor, si: torch.Tensor, ratio: int):
+    """Extend rfft(frame, M) to the rfft grid of the zero-stuffed length
+    r*M: U[k] = X[k mod M] for k in [0, r*M/2], the full period of X
+    rebuilt from the rfft half by Hermitian symmetry."""
+    if ratio == 1:
+        return sr, si
+    reps = ratio // 2
+    batch = (1,) * (sr.ndim - 1)
+    full_r = torch.cat([sr[..., :-1], torch.flip(sr[..., 1:], (-1,))], -1)
+    full_i = torch.cat([si[..., :-1], -torch.flip(si[..., 1:], (-1,))], -1)
+    out_r = torch.cat([full_r.repeat(batch + (reps,)), sr[..., :1]], -1)
+    out_i = torch.cat([full_i.repeat(batch + (reps,)), si[..., :1]], -1)
+    return out_r, out_i
 
 
 def absorbed_plan(cfg: OverlapSaveConfig) -> tuple[int, int, int, int] | None:
@@ -262,21 +274,24 @@ class FoldedBundle:
       absorbed: GW laid out [Q2, r_m, P2, 2] (q-major, so the CUDA kernel
         reads one q's [r_m, P2] weight slab contiguously);
       folded, ratio >= 2: G = G1 + G2, [h, 2];
-      folded, ratio 1: G1 and G2 stacked, [2, h, 2].
+      folded, ratio 1: G1 and G2 stacked, [2, h, 2];
+      classic (odd overlap, ``classic``): the rfft spectrum itself,
+        [n_bins, 2].
     """
 
     absorbed: bool
     weights: torch.Tensor
+    classic: bool = False
 
 
 def fold_bundle(spectrum, cfg: OverlapSaveConfig) -> FoldedBundle:
     """Fold an rfft filter spectrum (re, im) pair into the frame program's
     weights (the work the JAX step repeats on every dispatch,
-    totton_tpu/ops/overlap_save.py:599-616)."""
+    totton_tpu/ops/overlap_save.py:599-616). An odd overlap's classic
+    program takes the spectrum as it is."""
     if cfg.overlap % 2 != 0:
-        raise NotImplementedError(
-            "odd overlap (even tap count) needs the classic rfft/irfft "
-            "path, which is not ported yet (ROADMAP queue A)")
+        w = torch.stack([spectrum[0], spectrum[1]], -1)
+        return FoldedBundle(False, w.contiguous(), classic=True)
     (g1r, g1i), (g2r, g2i) = _fold_g(spectrum, cfg.fft_size)
     plan = absorbed_plan(cfg)
     if plan is None:
@@ -377,15 +392,15 @@ def _absorbed_stacked(frames, gw, cfg: OverlapSaveConfig, plan):
 def upsample_frames(frames: torch.Tensor, bundle: FoldedBundle,
                     cfg: OverlapSaveConfig) -> torch.Tensor:
     """Plain version of the frame function:
-    [..., frame_in] input-rate frames -> [..., block_size] output blocks."""
-    if cfg.overlap % 2 != 0:
-        raise NotImplementedError(
-            "odd overlap (even tap count) needs the classic rfft/irfft "
-            "path, which is not ported yet (ROADMAP queue A)")
+    [..., frame_in] input-rate frames -> [..., block_size] output blocks.
+    Odd overlaps go to the classic program, as in the JAX package."""
     frames = frames.to(torch.float32)
     plan = absorbed_plan(cfg)
-    if bundle.absorbed != (plan is not None):
+    if (bundle.classic != (cfg.overlap % 2 != 0)
+            or bundle.absorbed != (plan is not None)):
         raise ValueError("bundle was folded for another geometry")
+    if bundle.classic:
+        return _upsample_frames_classic(frames, bundle, cfg)
     if plan is not None:
         return _absorbed_stacked(frames, bundle.weights, cfg, plan)
     m = cfg.frame_in
@@ -409,6 +424,17 @@ def upsample_frames(frames: torch.Tensor, bundle: FoldedBundle,
     return out[..., 2 * rem: 2 * rem + cfg.block_size]
 
 
+def _upsample_frames_classic(frames: torch.Tensor, bundle: FoldedBundle,
+                             cfg: OverlapSaveConfig) -> torch.Tensor:
+    """rfft -> periodic extension -> x H -> irfft -> discard the overlap
+    (the JAX package's odd-overlap program, ops/overlap_save.py:782-791)."""
+    xr, xi = _fft.rfft2(frames, cfg.frame_in)
+    er, ei = _periodic_rfft_extend(xr, xi, cfg.ratio)
+    h = bundle.weights
+    yr, yi = _fft.complex_mul(er, ei, h[:, 0], h[:, 1])
+    return _fft.irfft2(yr, yi, cfg.fft_size)[..., cfg.overlap:]
+
+
 def upsample_blocks(x: torch.Tensor, bundle: FoldedBundle,
                     cfg: OverlapSaveConfig) -> torch.Tensor:
     """Plain: upsample a contiguous input carrying its own history.
@@ -429,13 +455,17 @@ def make_block_step(cfg: OverlapSaveConfig):
     input; bundle: from ``fold_bundle`` (a hot swap passes another bundle
     and rebuilds nothing). Frames go through
     ``fused_frames.fused_upsample_frames``: the CUDA kernel on a CUDA
-    tensor, the plain version on a CPU tensor.
+    tensor, the plain version on a CPU tensor. Odd overlaps run the
+    classic program on every device (the JAX package's Pallas kernel never
+    takes them either).
     """
     from totton_tpu_torch.ops.fused_frames import fused_upsample_blocks
 
+    blocks = upsample_blocks if cfg.overlap % 2 else fused_upsample_blocks
+
     def step(tail: torch.Tensor, x: torch.Tensor, bundle: FoldedBundle):
         xin = torch.cat([tail, x], dim=-1)
-        y = fused_upsample_blocks(xin, bundle, cfg)
+        y = blocks(xin, bundle, cfg)
         return y, xin[..., xin.shape[-1] - cfg.halo_in:].clone()
 
     return step

@@ -128,7 +128,7 @@ def _profile_to_sos(profile, sample_rate: float):
     instead of the output rate shifts responses only through bilinear
     warping near the input Nyquist — EQ bands live well below it.
     """
-    from totton_tpu.eq.biquad import biquad_coeffs
+    from totton_tpu_torch.eq.biquad import biquad_coeffs
 
     rows = []
     for band in profile.bands:
@@ -351,7 +351,7 @@ class StreamServer:
         # to the CPU on its own.
         self.device = resolve_device(device)
         self.config = OverlapSaveConfig.from_sidecar(filt.sidecar)
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and self.config.overlap % 2 == 0:
             kernel_plan(self.config)  # raises on what the kernel cannot run
         self._filter = filt
         # Device-PCM serving: quantize the batched step output to int16
@@ -500,7 +500,7 @@ class StreamServer:
         (length,) = struct.unpack("<I", _recv_exact(sock, 4))
         if length > MAX_EQ_BLOCK_BYTES:
             raise ValueError(f"EQ block too large: {length} bytes")
-        from totton_tpu.eq.apo import parse_eq_string
+        from totton_tpu_torch.eq.apo import parse_eq_string
 
         text = _recv_exact(sock, length).decode("utf-8")
         profile = parse_eq_string(text)
