@@ -5,8 +5,10 @@ Builds the port's CUDA frame kernel from this checkout's sources, checks it
 against its plain torch version (at every frame count the main path gives
 it) and against a float64 oracle, drives the port's main path
 (``totton-stream-torch`` file mode, 16x / 80001 taps, stereo s16, the
-bundled filter) through the kernel, times kernel and plain version and
-each of the kernel's four launches, serves concurrent client streams
+bundled filter) through the kernel, times the kernel against its plain
+version and the same function composed of ``torch.fft`` calls (cuFFT,
+the yardstick ``library_ms``) with a cold L2, computes the kernel's bound
+from its work, times each of its launches, serves concurrent client streams
 through the port's ``StreamServer`` (16x/80k f32 with a live filter swap;
 the 16x/8k bank with device PCM and s16 clients) against the offline
 kernel output, runs the kernel's ratio-1 branch through the CLI's EQ-only
@@ -19,11 +21,12 @@ final status line:
   {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": N}}
 
 Exits non-zero, printing no result, without CUDA or outside the repository.
-Imports nothing of JAX.
+Imports nothing of JAX and nothing of the JAX package (``totton_tpu``).
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import shutil
@@ -32,10 +35,6 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-# The JAX package's __init__ would import jax under TOTTON_PLATFORM and
-# create a compile-cache directory under $HOME; the port needs neither.
-os.environ.pop("TOTTON_PLATFORM", None)
-os.environ["TOTTON_COMPILE_CACHE"] = "0"
 sys.path.insert(0, HERE)
 
 FILTER_DIR = os.path.join(HERE, "data", "coefficients")
@@ -52,8 +51,17 @@ SNR_GATE_DB = 125.0  # vs the float64 oracle (bench.py's gate)
 PARITY_FRAMES = (2, 16, 18, 32, 64, 128, 256, 512)
 RATE = 44100
 SERVE_FADE = 4096    # output frames of the live swap's crossfade
-LAUNCH_NAMES = {"FwdStage1Store": "F1", "FwdStage2Store": "F2",
-                "InvStage1Store": "I1", "OutStore": "I2"}
+# The kernel's launches by their store functor (fft_stage<N, INV, Load,
+# Store>): the fused forward (F) or its two four-step launches (F1, F2),
+# then I1 and I2.
+LAUNCH_NAMES = {"SpecStore": "F", "FwdStage1Store": "F1",
+                "FwdStage2Store": "F2", "InvStage1Store": "I1",
+                "OutStore": "I2"}
+# The card's peaks (NVIDIA's data sheet, H100 SXM at 700 W): fp32 on the
+# CUDA cores and HBM3; bound_ms is the larger of the two times.
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_S = 3.35e12
+L2_FLUSH_BYTES = 128 * 2**20  # more than the 50 MB L2
 
 
 def phase(name: str, msg: str) -> None:
@@ -79,9 +87,10 @@ def kernel_vs_plain(frames, bundle, cfg) -> tuple[float, float]:
     return rel, err
 
 
-def launch_times_ms(fn, reps: int = 3) -> dict[str, float] | None:
-    """Device ms per launch of each of the kernel's four GEMMs (F1, F2, I1,
-    I2) from torch.profiler, averaged over ``reps`` calls of fn(); None
+def launch_times_ms(fn, labels, reps: int = 3):
+    """(device ms per launch of each of the kernel's launches (``labels``,
+    e.g. F, I1, I2), kernel launches per call of fn()) from torch.profiler
+    over ``reps`` calls of fn(), each after an L2 flush; (None, None)
     where the profiler records no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -91,11 +100,12 @@ def launch_times_ms(fn, reps: int = 3) -> dict[str, float] | None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
+            flush_l2()
             fn()
         torch.cuda.synchronize()
-    out = {}
+    out, launches = {}, 0
     for ev in prof.key_averages():
-        if "cgemm" not in ev.key:
+        if "fft_stage" not in ev.key:
             continue
         us = max(getattr(ev, a, 0) or 0 for a in (
             "device_time_total", "self_device_time_total",
@@ -103,7 +113,23 @@ def launch_times_ms(fn, reps: int = 3) -> dict[str, float] | None:
         for store, label in LAUNCH_NAMES.items():
             if store in ev.key and us > 0:
                 out[label] = us / 1e3 / ev.count
-    return out if len(out) == len(LAUNCH_NAMES) else None
+                launches += ev.count
+    if set(out) != set(labels):
+        return None, None
+    return out, launches // reps if launches % reps == 0 else launches / reps
+
+
+def kernel_bound_ms(cfg, n_frames: int):
+    """({"operations": ms, "bytes": ms}, the side that sets the bound) for
+    one dispatch of ``n_frames``: the FLOPs the function needs at the fp32
+    peak, the bytes each input read and each output written once at the
+    HBM rate."""
+    from totton_tpu_torch.ops import fused_frames as ff
+
+    bound = {"operations": (ff.flops_per_frame(cfg) * n_frames
+                            / PEAK_FP32_FLOPS * 1e3),
+             "bytes": ff.bound_bytes(cfg, n_frames) / PEAK_BYTES_S * 1e3}
+    return bound, max(bound, key=bound.get)
 
 
 def card_line() -> str:
@@ -113,14 +139,29 @@ def card_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
+@functools.lru_cache(maxsize=1)
+def _flush_buffer():
+    import torch
+
+    return torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+
+
+def flush_l2() -> None:
+    """Overwrite more than the card's L2, so the next launch meets a cold
+    cache as the main path's dispatches do."""
+    _flush_buffer().zero_()
+
+
 def cuda_time_ms(fn, warmup: int = 2, reps: int = 5) -> float:
-    """Median of ``reps`` CUDA-event timings of fn() after ``warmup``."""
+    """Median of ``reps`` CUDA-event timings of fn() after ``warmup``, the
+    L2 flushed before each (outside the timed span)."""
     import torch
 
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
+        flush_l2()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -129,6 +170,20 @@ def cuda_time_ms(fn, warmup: int = 2, reps: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return sorted(times)[len(times) // 2]
+
+
+def library_frames(frames, hspec, cfg):
+    """The yardstick: the classic overlap-save program on cuFFT through
+    ``torch.fft`` (rfft of each frame, periodic extension to the
+    zero-stuffed length, x H, irfft of fft_size points, the overlap
+    discarded). Timed beside the kernel; the port never calls it."""
+    import torch
+
+    x = torch.fft.rfft(frames, dim=-1)
+    if cfg.ratio > 1:
+        full = torch.cat([x, x[..., 1:-1].flip(-1).conj()], -1)
+        x = torch.cat([full.repeat(1, cfg.ratio // 2), x[..., :1]], -1)
+    return torch.fft.irfft(x * hspec, n=cfg.fft_size)[..., cfg.overlap:]
 
 
 def free_port() -> int:
@@ -150,7 +205,7 @@ def run_clients(port, signals, fmt=None, split=None, swap=None):
 
     import numpy as np
 
-    from totton_tpu.io.serve_client import ServeClient
+    from totton_tpu_torch.io.serve_client import ServeClient
 
     split = split or {}
     outs = [None] * len(signals)
@@ -290,7 +345,7 @@ def serve_phase(card, lf, lin, device, seconds=(2.0, 3.5, 5.0, 7.3),
     stopped server)."""
     import numpy as np
 
-    from totton_tpu.testing.validate_output import validate_audio
+    from totton_tpu_torch.testing.validate_output import validate_audio
     from totton_tpu_torch.engine.upsampler import upsample_signal
     from totton_tpu_torch.ops import fused_frames as ff
     from totton_tpu_torch.serve import StreamServer
@@ -318,6 +373,9 @@ def serve_phase(card, lf, lin, device, seconds=(2.0, 3.5, 5.0, 7.3),
     outs, wall = run_clients(port, sigs, split={2: held, 3: held}, swap=swap)
     server.stop()
     launches = ff.LAUNCHES
+    if device == "cuda" and server._bundle.absorbed:
+        raise AssertionError("the live swap folded GW on the card; the "
+                             "kernel takes G")
     figures = serve_figures(server, wall)
     if server.failed or (device == "cuda" and launches < 1):
         raise AssertionError(f"serve failed={server.failed}, fused_frames "
@@ -370,7 +428,7 @@ def serve_low_phase(card, low, device, n_streams=12, seconds=2.0) -> int:
     launches."""
     import numpy as np
 
-    from totton_tpu.io.pcm import (
+    from totton_tpu_torch.io.pcm import (
         PcmFormat,
         deinterleave,
         float_to_pcm,
@@ -469,12 +527,12 @@ def max_lsb(a, b) -> float:
 
 
 def ratio1_states(device, profile_path):
-    """(label, cfg, bundle) of the two ratio-1 geometries the kernel's
-    halves branch runs: (129, 1024, 1) with a seeded filter, and the CLI's
-    identity geometry (1025, 4096, 1) with an APO EQ baked in."""
+    """(label, cfg, bundle, spectrum) of the two ratio-1 geometries the
+    kernel's halves branch runs: (129, 1024, 1) with a seeded filter, and
+    the CLI's identity geometry (1025, 4096, 1) with an APO EQ baked in."""
     import numpy as np
 
-    from totton_tpu_torch.eq import resolve_eq_response
+    from totton_tpu_torch.control.wiring import resolve_eq_response
     from totton_tpu_torch.ops import overlap_save as osv
 
     rng = np.random.default_rng(1)
@@ -491,7 +549,7 @@ def ratio1_states(device, profile_path):
             label = " identity + APO EQ"
         spec = osv.filter_spectrum(h, fft, eq, device=device)
         out.append((f"ratio 1 ({taps}, {fft}){label}", cfg,
-                    osv.fold_bundle(spec, cfg)))
+                    osv.fold_bundle(spec, cfg), spec))
     return out
 
 
@@ -502,8 +560,8 @@ def ratio1_phase(card, work, device="cuda", seconds=40.0):
     import numpy as np
     import torch
 
-    from totton_tpu.io.wav import read_wav, write_wav
-    from totton_tpu.testing.signals import sine
+    from totton_tpu_torch.io.wav import read_wav, write_wav
+    from totton_tpu_torch.testing.signals import sine
     from totton_tpu_torch.ops import fused_frames as ff
     from totton_tpu_torch.ops import overlap_save as osv
 
@@ -531,26 +589,37 @@ def ratio1_phase(card, work, device="cuda", seconds=40.0):
     if device == "cuda" and launches < 1:
         raise AssertionError("--ratio 1 never launched fused_frames")
     eq_db = 20 * np.log10(np.abs(outs[device]).max() / np.abs(x).max())
-    (_, cfg, bundle), = [s for s in ratio1_states(device, profile)
-                         if s[1].taps == 1025]
-    k_ms = p_ms = float("nan")
+    (_, cfg, bundle, spec), = [s for s in ratio1_states(device, profile)
+                               if s[1].taps == 1025]
+    k_ms = p_ms = l_ms = lib_rel = float("nan")
+    n = 2 * 512
+    bound, bound_by = kernel_bound_ms(cfg, n)
     if device == "cuda":
         frames = torch.from_numpy((np.random.default_rng(2).normal(
-            size=(2 * 512, cfg.frame_in)) * 0.3).astype(np.float32)).to(device)
+            size=(n, cfg.frame_in)) * 0.3).astype(np.float32)).to(device)
+        hspec = torch.complex(spec[0], spec[1])
+        ref = osv.upsample_frames(frames, bundle, cfg)
+        lib_rel = ((library_frames(frames, hspec, cfg) - ref).abs().max()
+                   / ref.abs().max()).item()
         saved = ff.LAUNCHES
         k_ms = cuda_time_ms(lambda: ff.fused_upsample_frames(frames, bundle,
                                                               cfg))
         p_ms = cuda_time_ms(lambda: osv.upsample_frames(frames, bundle, cfg))
+        l_ms = cuda_time_ms(lambda: library_frames(frames, hspec, cfg))
         ff.LAUNCHES = saved
-        del frames
+        del frames, ref
     no_jax()
     phase("ratio1", f"totton-stream-torch --ratio 1 --eq-profile (3-band APO EQ, "
           f"identity 1025 taps, fft 4096), {seconds:g} s stereo s16: "
           f"{device} vs cpu max {lsb:.0f} LSB (limit 1); fused_frames "
           f"launches {launches}; wall {walls[device]:.2f} s ({device}), "
           f"{walls['cpu']:.2f} s (cpu); peak level {eq_db:+.2f} dB vs input; "
-          f"512 blocks stereo ratio 1: kernel {k_ms:.3f} ms, plain "
-          f"{p_ms:.3f} ms on {card}")
+          f"512 blocks stereo ratio 1, cold L2: kernel {k_ms:.3f} ms, plain "
+          f"{p_ms:.3f} ms, torch.fft composition {l_ms:.3f} ms (vs plain rel "
+          f"{lib_rel:.3e}); bound {bound[bound_by]:.4f} ms ({bound_by}; "
+          f"operations {bound['operations']:.4f}, bytes "
+          f"{bound['bytes']:.4f}), kernel at "
+          f"{bound[bound_by] / k_ms:.1%} of it on {card}")
     return launches
 
 
@@ -558,8 +627,8 @@ def threaded_phase(card, work, device="cuda", seconds=10.0):
     """--threaded file mode at 16x/80k against the same file without it:
     0 LSB expected, 1 LSB limit. Returns the launches of the threaded
     run."""
-    from totton_tpu.io.wav import read_wav, write_wav
-    from totton_tpu.testing.signals import sine
+    from totton_tpu_torch.io.wav import read_wav, write_wav
+    from totton_tpu_torch.testing.signals import sine
 
     x = sine(1000.0, seconds, RATE, amplitude=0.5, channels=2)
     in_path = os.path.join(work, "th_in.wav")
@@ -608,10 +677,10 @@ def crossfeed_phase(card, work, lf, device="cuda", seconds=(3.0, 10.0),
     import numpy as np
     from scipy import signal as ssig
 
-    from totton_tpu.filters.hrtf import generate_all
-    from totton_tpu.io.wav import read_wav, write_wav
-    from totton_tpu.testing.signals import sine
-    from totton_tpu.testing.validate_output import validate_audio
+    from totton_tpu_torch.filters.hrtf import generate_all
+    from totton_tpu_torch.io.wav import read_wav, write_wav
+    from totton_tpu_torch.testing.signals import sine
+    from totton_tpu_torch.testing.validate_output import validate_audio
     from totton_tpu_torch.engine.chain import CrossfeedChain
     from totton_tpu_torch.engine.crossfeed import (
         CrossfeedFilter,
@@ -721,11 +790,11 @@ def live_phase(card, work, device="cuda", seconds=10.0, period=4096):
     import numpy as np
     import torch
 
-    from totton_tpu.control.client import DaemonClient
-    from totton_tpu.io.pcm import PcmFormat, float_to_pcm, interleave
-    from totton_tpu.io.sockets import pack_header
-    from totton_tpu.io.wav import read_wav
-    from totton_tpu.testing.signals import sine
+    from totton_tpu_torch.control.client import DaemonClient
+    from totton_tpu_torch.io.pcm import PcmFormat, float_to_pcm, interleave
+    from totton_tpu_torch.io.sockets import pack_header
+    from totton_tpu_torch.io.wav import read_wav
+    from totton_tpu_torch.testing.signals import sine
 
     port = free_port()
     endpoint = f"ipc://{work}/c.sock"
@@ -863,7 +932,7 @@ def main() -> int:
         import numpy as np
         import torch
 
-        from totton_tpu.filters.sidecar import load_filter
+        from totton_tpu_torch.filters.sidecar import load_filter
         from totton_tpu_torch.ops import _build
         from totton_tpu_torch.ops import fused_frames as ff
         from totton_tpu_torch.ops import overlap_save as osv
@@ -896,7 +965,11 @@ def main() -> int:
         lf = load_filter(os.path.join(FILTER_DIR, name + ".json"))
         cfg = osv.OverlapSaveConfig.from_sidecar(lf.sidecar)
         spec = osv.filter_spectrum(lf.taps, cfg.fft_size, device=dev)
-        return lf, cfg, osv.fold_bundle(spec, cfg)
+        bundle = osv.fold_bundle(spec, cfg)
+        if bundle.absorbed:
+            raise AssertionError(f"{name}: the card folded GW; the kernel "
+                                 "takes the folded G")
+        return lf, cfg, bundle
 
     work = os.path.join(HERE, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
@@ -909,7 +982,7 @@ def main() -> int:
     main_err = 0.0
     states = [(name, *engine_state(name)[1:]) for name in PARITY_FILTERS]
     states += ratio1_states(dev, profile)
-    for name, cfg, bundle in states:
+    for name, cfg, bundle, *_ in states:
         rels = []
         counts = PARITY_FRAMES + ((1024,) if cfg.ratio == 1 else ())
         for n in counts:
@@ -952,9 +1025,9 @@ def main() -> int:
         raise AssertionError(f"SNR {snr_db:.2f} dB below the gate")
 
     # 5. The main path: totton-stream-torch, file mode, 16x/80k stereo s16.
-    from totton_tpu.io.wav import read_wav, write_wav
-    from totton_tpu.testing.signals import sine
-    from totton_tpu.testing.validate_output import validate_audio
+    from totton_tpu_torch.io.wav import read_wav, write_wav
+    from totton_tpu_torch.testing.signals import sine
+    from totton_tpu_torch.testing.validate_output import validate_audio
     from totton_tpu_torch.cli import stream as stream_cli
 
     fs = 44100
@@ -995,51 +1068,88 @@ def main() -> int:
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
-    # 6. Kernel vs plain, compared and timed, one 16x/80k stereo dispatch.
+    # 6. Kernel vs plain vs the torch.fft composition (library), compared
+    # and timed in turns (kernel, plain, library, library, plain, kernel;
+    # the median of each one's runs), one 16x/80k stereo dispatch, the L2
+    # flushed before every timed run.
     timings = {}
     saved = ff.LAUNCHES
+    hspec = torch.fft.rfft(
+        torch.from_numpy(lf.taps.astype(np.float64)).to(dev),
+        n=cfg.fft_size).to(torch.complex64)
     for blocks in (512, 1024):
         frames = torch.from_numpy(
             (rng.normal(size=(2 * blocks, cfg.frame_in)) * 0.3)
             .astype(np.float32)).to(dev)
         rel, err = kernel_vs_plain(frames, bundle, cfg)
         main_err = max(main_err, err)
-        k_ms = cuda_time_ms(lambda: ff.fused_upsample_frames(frames, bundle, cfg))
-        p_ms = cuda_time_ms(lambda: osv.upsample_frames(frames, bundle, cfg))
+        ref = osv.upsample_frames(frames, bundle, cfg)
+        lib_rel = ((library_frames(frames, hspec, cfg) - ref).abs().max()
+                   / ref.abs().max()).item()
+        del ref
+        fns = {"kernel": lambda: ff.fused_upsample_frames(frames, bundle, cfg),
+               "plain": lambda: osv.upsample_frames(frames, bundle, cfg),
+               "library": lambda: library_frames(frames, hspec, cfg)}
+        runs = {k: [] for k in fns}
+        for k in ("kernel", "plain", "library", "library", "plain", "kernel"):
+            runs[k].append(cuda_time_ms(fns[k], reps=5))
+        k_ms, p_ms, l_ms = (min(runs[k]) for k in fns)
+        medians = {k: [round(v, 4) for v in r] for k, r in runs.items()}
         out_samples = 2 * blocks * cfg.block_size
-        timings[blocks] = (k_ms, p_ms)
-        phase("time", f"{blocks} blocks stereo 16x/80k: kernel vs plain rel "
-              f"{rel:.3e}; kernel {k_ms:.3f} ms "
+        timings[blocks] = (k_ms, p_ms, l_ms)
+        phase("time", f"{blocks} blocks stereo 16x/80k, cold L2: kernel vs "
+              f"plain rel {rel:.3e}, torch.fft composition vs plain rel "
+              f"{lib_rel:.3e}; kernel {k_ms:.3f} ms "
               f"({out_samples / k_ms / 1e6:.3f} G samples/s), plain "
-              f"{p_ms:.3f} ms ({out_samples / p_ms / 1e6:.3f} G samples/s) "
-              f"on {card}")
+              f"{p_ms:.3f} ms, torch.fft composition {l_ms:.3f} ms "
+              f"(the lower of two medians of 5; medians {json.dumps(medians)})"
+              f" on {card}")
         del frames
     torch.cuda.empty_cache()
-
-    # 7. Device time of each of the kernel's four launches, 512 blocks.
     n = 2 * 512
+    flops = ff.flops_per_frame(cfg) * n
+    nbytes = ff.bound_bytes(cfg, n)
+    bound, bound_by = kernel_bound_ms(cfg, n)
+    phase("bound", f"512 blocks stereo 16x/80k: {flops / 1e9:.2f} GFLOP "
+          f"({bound['operations']:.4f} ms at {PEAK_FP32_FLOPS / 1e12:g} "
+          f"TFLOP/s fp32), {nbytes / 1e6:.1f} MB each input read and each "
+          f"output written once ({bound['bytes']:.4f} ms at "
+          f"{PEAK_BYTES_S / 1e12:g} TB/s); bound {bound[bound_by]:.4f} ms "
+          f"({bound_by}); kernel at {bound[bound_by] / timings[512][0]:.1%} "
+          f"of it")
+
+    # 7. Device time of each of the kernel's launches, 512 blocks.
+    labels = list(ff.flops_per_launch(cfg))
     frames = torch.from_numpy(
         (rng.normal(size=(n, cfg.frame_in)) * 0.3).astype(np.float32)).to(dev)
     try:
-        per_launch = launch_times_ms(
-            lambda: ff.fused_upsample_frames(frames, bundle, cfg))
+        per_launch, per_dispatch = launch_times_ms(
+            lambda: ff.fused_upsample_frames(frames, bundle, cfg), labels)
         why = "the profiler recorded no device time"
     except RuntimeError as e:  # the profiler, not the kernel, failed
-        per_launch, why = None, f"profiler error: {e}"
+        per_launch, per_dispatch, why = None, None, f"profiler error: {e}"
     ff.LAUNCHES = saved
     del frames
     if per_launch is None:
-        phase("launches", f"per-launch device time: not measured ({why})")
+        phase("launches", f"per-launch device time and launches per "
+              f"dispatch: not measured ({why})")
     else:
-        flops = ff.flops_per_launch(cfg)
+        if per_dispatch != len(labels):
+            raise AssertionError(
+                f"the profiler saw {per_dispatch} kernel launches per "
+                f"dispatch; the stage plan has {len(labels)} ({labels})")
+        fl, by = ff.flops_per_launch(cfg), ff.bytes_per_launch(cfg)
         parts = [f"{k} {per_launch[k]:.3f} ms "
-                 f"({flops[k] * n / per_launch[k] / 1e9:.1f} TFLOP/s)"
-                 for k in ("F1", "F2", "I1", "I2")]
+                 f"({fl[k] * n / per_launch[k] / 1e9:.1f} TFLOP/s, "
+                 f"{by[k] * n / per_launch[k] / 1e6:.0f} GB/s)"
+                 for k in labels]
         total = sum(per_launch.values())
-        phase("launches", f"512 blocks stereo 16x/80k, torch.profiler: "
+        phase("launches", f"512 blocks stereo 16x/80k, torch.profiler, "
+              f"cold L2: {per_dispatch:g} launches a dispatch; "
               f"{', '.join(parts)}; sum {total:.3f} ms "
-              f"({ff.flops_per_frame(cfg) * n / total / 1e9:.1f} TFLOP/s) "
-              f"on {card}")
+              f"({ff.flops_per_frame(cfg) * n / total / 1e9:.1f} TFLOP/s, "
+              f"{sum(by.values()) * n / total / 1e6:.0f} GB/s of scratch "
+              f"and frame traffic) on {card}")
 
     # 8. The serve plane at 16x/80k: four concurrent f32 streams on an
     # 8-slot server, a live swap to the linear-phase filter under two.
@@ -1078,9 +1188,13 @@ def main() -> int:
         "replaces": "totton_tpu/experimental/pallas_kernels.py:284",
         "launches": (launches + serve_launches + low_launches + r1_launches
                      + th_launches + cf_launches + live_launches),
+        "launches_per_dispatch": per_dispatch,
         "max_abs_err": main_err,
         "ms": timings[512][0],
         "plain_ms": timings[512][1],
+        "bound_ms": bound[bound_by],
+        "bound_by": bound_by,
+        "library_ms": timings[512][2],
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

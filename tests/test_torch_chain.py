@@ -12,7 +12,6 @@ from totton_tpu.engine.crossfeed import CrossfeedProcessor as JaxCf
 from totton_tpu.engine.upsampler import StreamingUpsampler as JaxUp
 from totton_tpu.filters.hrtf import generate_all
 from totton_tpu.filters.sidecar import load_filter
-from totton_tpu.io.pcm import PcmFormat
 from totton_tpu_torch.engine.chain import CrossfeedChain
 from totton_tpu_torch.engine.crossfeed import (
     CrossfeedFilter,
@@ -20,6 +19,7 @@ from totton_tpu_torch.engine.crossfeed import (
     crossfeed_signal,
 )
 from totton_tpu_torch.engine.upsampler import StreamingUpsampler, upsample_signal
+from totton_tpu_torch.io.pcm import PcmFormat
 
 torch.set_num_threads(2)
 

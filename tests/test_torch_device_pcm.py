@@ -79,10 +79,11 @@ def test_set_dither_live_in_device_pcm_mode(coefficients_dir):
     quantize_s16 once turned off again."""
     from totton_tpu.filters.sidecar import load_filter
     from totton_tpu_torch.engine.upsampler import StreamingUpsampler
+    from totton_tpu_torch.io.pcm import PcmFormat as PortPcmFormat
 
     lf = load_filter(next(coefficients_dir.glob("filter_44k_2x_*.json")))
     assert StreamingUpsampler(lf, 2, device="cpu").set_dither(True) is False
-    eng = StreamingUpsampler(lf, 2, device_pcm=PcmFormat.S16_LE,
+    eng = StreamingUpsampler(lf, 2, device_pcm=PortPcmFormat.S16_LE,
                              pcm_seed=11, device="cpu")
     ref = StreamingUpsampler(lf, 2, device="cpu")
     n = eng.block_input_frames

@@ -8,7 +8,9 @@ import torch
 from totton_tpu.engine.upsampler import StreamingUpsampler as JaxUpsampler
 from totton_tpu.engine.upsampler import upsample_signal as jax_upsample_signal
 from totton_tpu.filters.sidecar import load_filter
-from totton_tpu.io.pcm import PcmFormat, quantize_s16_host
+from totton_tpu.io.pcm import PcmFormat as JaxPcmFormat
+from totton_tpu.io.pcm import quantize_s16_host
+from totton_tpu_torch.io.pcm import PcmFormat
 from totton_tpu_torch.engine.upsampler import StreamingUpsampler, upsample_signal
 
 torch.set_num_threads(2)
@@ -74,7 +76,7 @@ def test_device_pcm_bit_exact_vs_float_and_near_jax(coefficients_dir, rng):
     pcm = StreamingUpsampler(lf, 2, swap_fade_frames=FADE,
                              device_pcm=PcmFormat.S16_LE, device="cpu")
     jpcm = JaxUpsampler(lf, 2, swap_fade_frames=FADE,
-                        device_pcm=PcmFormat.S16_LE)
+                        device_pcm=JaxPcmFormat.S16_LE)
     block_in = fl.block_input_frames
     for i in range(4):
         if i == 1:

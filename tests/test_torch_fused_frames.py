@@ -2,15 +2,19 @@
 
 On the CPU the wrapper runs the plain version: it is checked against the
 JAX Pallas kernel in interpret mode on tests/test_pallas.py's geometries.
-The CUDA kernel cannot run here, so its four-launch algebra — the operand
-layouts, strides and epilogue index maps of csrc/fused_frames.cu — is
-replayed in numpy from the wrapper's own plan and constants and held
-against the plain version. The kernel itself is compared with the plain
-version on the card by the test marked ``cuda`` (and by chip_smoke.py).
+The CUDA kernel cannot run here, so its stage plan — the kernel_plan
+splits, the loaders' and stores' index maps, the twiddle tables, the
+pruned columns and the interleaved store of csrc/fused_frames.cu — is
+replayed in torch (each short transform by a DFT) and held against the
+plain version, and its Stockham pass sequence is replayed in numpy with
+the kernel's own twiddle tables and held against numpy's FFT. The kernel
+itself is compared with the plain version on the card by the tests
+marked ``cuda`` (and by chip_smoke.py).
 """
 
 import glob
 import json
+import math
 import os
 
 import numpy as np
@@ -31,6 +35,10 @@ PALLAS_GEOMETRIES = [(257, 2048, 4), (1025, 4096, 2), (1025, 8192, 16),
                      (129, 1024, 1), (1025, 8192, 8)]
 KERNEL_GEOMETRIES = PALLAS_GEOMETRIES
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# Tolerances: the replays run in float64 against the float32 plain
+# version, whose rounding (summation order over up to 512-point stages)
+# sets rel ~1e-6; 1e-5 is the kernel-vs-plain limit on the card.
+REL_TOL = 1e-5
 
 
 def _cfgs(taps, fft, ratio):
@@ -43,60 +51,99 @@ def _rel(y, ref):
     return np.abs(y - ref).max() / np.abs(ref).max()
 
 
+def _dft(a: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """Unnormalized DFT along the last axis (complex128), as one matrix."""
+    n = a.shape[-1]
+    k = torch.arange(n, dtype=torch.float64)
+    ang = (2.0 if inverse else -2.0) * math.pi * (torch.outer(k, k) % n) / n
+    return a @ torch.polar(torch.ones_like(ang), ang)
+
+
+def _table(v: torch.Tensor) -> torch.Tensor:
+    return torch.complex(v[..., 0].double(), v[..., 1].double())
+
+
 def emulate_kernel(frames: np.ndarray, bundle, cfg) -> np.ndarray:
-    """numpy replay of csrc/fused_frames.cu's four launches (F1, F2, I1,
-    I2) with the layouts and index maps the .cu uses."""
+    """torch replay of csrc/fused_frames.cu's launches with the plan's
+    splits, the loaders' and stores' index maps and the wrapper's twiddle
+    tables; each short transform is a DFT. NaN marks an output sample the
+    stores never write."""
     pl = ff.kernel_plan(cfg)
-    consts = {k: v[..., 0].numpy() + 1j * v[..., 1].numpy()
-              for k, v in ff.kernel_consts(cfg, "cpu").items()}
+    tabs = {k: _table(v) for k, v in ff.kernel_consts(cfg, "cpu").items()}
     n = frames.shape[0]
-    m, p, q = pl["m"], pl["P"], pl["Q"]
-    p2, q2, r = pl["P2"], pl["Q2"], pl["r"]
-    # F1: rows (n, q), depth p, cols k1; store b[n*m + k1*Q + q] * tw.
-    a = frames.reshape(n, p, q).transpose(0, 2, 1).reshape(n * q, p)
-    c1 = (a @ consts["w_p"]).reshape(n, q, p) * consts["tw_m"].T[None]
-    b = np.empty(n * m, complex)
-    ni, qi, ki = np.meshgrid(np.arange(n), np.arange(q), np.arange(p),
-                             indexing="ij")
-    b[ni * m + ki * q + qi] = c1
-    # F2: rows (n, k1), depth q, cols k2; X[n*m + q2*r + s] at bin k.
-    c2 = (b.reshape(n * p, q) @ consts["w_q"]).reshape(n, p, q)
-    ni, ki, k2 = np.meshgrid(np.arange(n), np.arange(p), np.arange(q),
-                             indexing="ij")
-    k = k2 * p + ki
-    if not pl["absorbed"]:
-        # Read as float2 in natural order (ratio 1: G1 then G2).
-        w = bundle.weights.numpy().reshape(-1, 2)
-        c2 = c2 * (w[:, 0] + 1j * w[:, 1])[k]
-    x = np.empty(n * m, complex)
-    x[ni * m + (k % q2) * r + k // q2] = c2
-    # I1: batch q2, rows n, depth s, cols k1'; C[n, q2, k1']. At ratio 1
-    # the loader sums X[n, q2, s] and X[n, q2, s + P2] (bins k and k + h).
-    xs = x.reshape(n, q2, r)
-    if pl["halves"]:
-        xs = xs[..., :p2] + xs[..., p2:]
-    assert xs.shape[-1] == pl["depth_i1"]
-    if pl["absorbed"]:
-        w = bundle.weights.numpy()
-        c3 = np.einsum("nqs,qsk->qnk", xs, w[..., 0] + 1j * w[..., 1])
+    m, h, p2, q2 = pl["m"], pl["h"], pl["P2"], pl["Q2"]
+    x = torch.from_numpy(frames).to(torch.complex128)
+    if pl["fused"]:
+        # One M = m/2 point FFT per frame of z[i] = x[2i] + i x[2i+1]; the
+        # store untangles with the table's W_m^j (j = 0 .. M): X[k] =
+        # A[k] Z[k] + B[k] conj(Z[M - k]) and X[M + k] = conj(X[M - k]).
+        half = m // 2
+        zf = _dft(x[:, 0::2] + 1j * x[:, 1::2], False)
+        wm = tabs["tw_fwd"][half:]
+        a, b = (1 - 1j * wm) / 2, (1 + 1j * wm) / 2
+        k = torch.arange(half)
+        zr = zf[:, (half - k) % half]
+        lo = a[k] * zf + b[k] * zr.conj()
+        hi = (a[half - k] * zr + b[half - k] * zf.conj()).conj()
+        spec = torch.cat([lo, hi], -1)
     else:
-        c3 = (np.einsum("nqs,sk->qnk", xs, consts["w_p2"])
-              * consts["tw_h"].T[:, None, :])
-    c = c3.transpose(1, 0, 2).reshape(-1)  # stored [n, q2, k1']
-    # I2: rows (n, k1'), depth q2 (read c[(n*Q2 + q2)*P2 + k1']), kept
-    # cols; out[n, 2(j - j0) + e].
-    ni, ki, qi = np.meshgrid(np.arange(n), np.arange(p2), np.arange(q2),
-                             indexing="ij")
-    a2 = c[(ni * q2 + qi) * p2 + ki].reshape(n * p2, q2)
-    z = (a2 @ consts["w2"]).reshape(n, p2, pl["kept"])
+        p, q = pl["P"], pl["Q"]
+        # F1: transform (n, q), element p = x[n, p*Q + q]; B[n, k1, q]
+        # times tw_m[k1, q].
+        b = _dft(x.reshape(n, p, q).transpose(1, 2), False)  # [n, q, k1]
+        b = b.transpose(1, 2) * tabs["tw_m"].reshape(p, q)   # [n, k1, q]
+        # F2: transform (n, k1), element q; X[n, k2*P + k1].
+        spec = _dft(b, False).transpose(1, 2).reshape(n, m)
+    # I1: transform (n, q2), element s, k = s*Q2 + q2: Z[k] formed from X
+    # and G as the loader reads them.
+    g = _table(bundle.weights).reshape(-1)
+    k = (torch.arange(p2)[:, None] * q2 + torch.arange(q2)[None]).reshape(-1)
+    if pl["halves"]:
+        z = spec[:, k] * g[k] + spec[:, k + h] * g[k + h]
+    else:
+        z = spec[:, k % m] * g[k]
+    c1 = _dft(z.reshape(n, p2, q2).transpose(1, 2), True)   # [n, q2, k1']
+    c = c1 * tabs["tw_h"]                                   # C[n, q2, k1']
+    # I2: transform (n, k1'), element q2; j = k2'*P2 + k1' - j0 stored as
+    # out[n, 2j + {0, 1}] where j >= 0.
+    zz = _dft(c.transpose(1, 2), True).numpy()                # [n, k1', k2']
     out = np.full((n, pl["block"]), np.nan)
-    ni, ki, col = np.meshgrid(np.arange(n), np.arange(p2),
-                              np.arange(pl["kept"]), indexing="ij")
-    j = (pl["k2_0"] + col) * p2 + ki - pl["j0"]
+    ni, ki, k2 = np.meshgrid(np.arange(n), np.arange(p2), np.arange(q2),
+                             indexing="ij")
+    j = k2 * p2 + ki - pl["j0"]
     keep = j >= 0
-    out[ni[keep], 2 * j[keep]] = z[keep].real
-    out[ni[keep], 2 * j[keep] + 1] = z[keep].imag
+    out[ni[keep], 2 * j[keep]] = zz[keep].real
+    out[ni[keep], 2 * j[keep] + 1] = zz[keep].imag
     return out
+
+
+def _stockham(x: np.ndarray, inverse: bool) -> np.ndarray:
+    """csrc/fused_frames.cu's fft_passes replayed on one transform: radix
+    8 while N/NS >= 8, then one radix 2 or 4; twiddles from the wrapper's
+    forward W_N^e table (conjugated for the inverse)."""
+    n = len(x)
+    re, im = ff._fwd_table(n)
+    tw = re.astype(np.float64) + 1j * im.astype(np.float64)
+    if inverse:
+        tw = tw.conj()
+    d = x.astype(np.complex128)
+    ns = 1
+    while ns < n:
+        r = 8 if n // ns >= 8 else n // ns
+        j = np.arange(n // r)
+        k = j % ns
+        v = np.stack([d[j + q * (n // r)] for q in range(r)])     # [r, n/r]
+        v = v * tw[(k[None] * np.arange(r)[:, None] * (n // (ns * r)))]
+        w = np.exp((2j if inverse else -2j) * np.pi
+                   * np.outer(np.arange(r), np.arange(r)) / r)
+        v = w @ v                                                 # DFT_r
+        out = np.empty_like(d)
+        dst = (j // ns) * ns * r + k
+        for q in range(r):
+            out[dst + q * ns] = v[q]
+        d = out
+        ns *= r
+    return d
 
 
 @pytest.mark.parametrize("taps,fft,ratio", PALLAS_GEOMETRIES)
@@ -118,13 +165,13 @@ def test_cpu_wrapper_matches_pallas_interpret(rng, taps, fft, ratio):
 @pytest.mark.parametrize("taps,fft,ratio", KERNEL_GEOMETRIES)
 def test_kernel_algebra_replay_matches_plain(rng, taps, fft, ratio):
     _, cfg = _cfgs(taps, fft, ratio)
-    bundle = tos.fold_bundle(tos.filter_spectrum(rng.normal(size=taps), fft),
-                             cfg)
+    bundle = tos._folded_g(tos.filter_spectrum(rng.normal(size=taps), fft),
+                           cfg)
     frames = rng.normal(size=(3, cfg.frame_in)).astype(np.float32)
     ref = tos.upsample_frames(torch.from_numpy(frames), bundle, cfg).numpy()
     got = emulate_kernel(frames.astype(np.float64), bundle, cfg)
     assert not np.isnan(got).any(), "an output sample was never written"
-    assert _rel(got, ref) < 1e-5
+    assert _rel(got, ref) < REL_TOL
 
 
 def test_kernel_algebra_replay_production_16x(rng):
@@ -132,12 +179,105 @@ def test_kernel_algebra_replay_production_16x(rng):
     frame of the bundled filter's size."""
     _, cfg = _cfgs(80001, 131072, 16)
     h = rng.normal(size=80001) * np.exp(-np.arange(80001) / 8000.0)
-    bundle = tos.fold_bundle(tos.filter_spectrum(h, cfg.fft_size), cfg)
+    bundle = tos._folded_g(tos.filter_spectrum(h, cfg.fft_size), cfg)
     frames = rng.normal(size=(1, cfg.frame_in)).astype(np.float32)
     ref = tos.upsample_frames(torch.from_numpy(frames), bundle, cfg).numpy()
     got = emulate_kernel(frames.astype(np.float64), bundle, cfg)
     assert not np.isnan(got).any()
-    assert _rel(got, ref) < 1e-5
+    assert _rel(got, ref) < REL_TOL
+
+
+def _eq_response(tmp_path, fft):
+    from totton_tpu_torch.control.wiring import resolve_eq_response
+
+    path = tmp_path / "eq.txt"
+    path.write_text("Preamp: -5 dB\n"
+                    "Filter 1: ON PK Fc 1000 Hz Gain 3 dB Q 1.0\n"
+                    "Filter 2: ON LSC Fc 105 Hz Gain 4 dB Q 0.7\n"
+                    "Filter 3: ON HSC Fc 8000 Hz Gain -2 dB Q 0.7\n")
+    return resolve_eq_response(str(path), None, fft, 44100)[0]
+
+
+# The five geometries chip_smoke.py holds the kernel to on the card:
+# 16x/80k (fused forward), 2x/80k (two-launch forward), 16x/8k, and ratio
+# 1 at (129, 1024) and the CLI's identity (1025, 4096) with an APO EQ.
+CHIP_GEOMETRIES = [(80001, 131072, 16, False), (80001, 131072, 2, False),
+                   (8001, 16384, 16, False), (129, 1024, 1, False),
+                   (1025, 4096, 1, True)]
+
+
+@pytest.mark.parametrize("taps,fft,ratio,eq", CHIP_GEOMETRIES)
+def test_kernel_stage_plan_at_chip_geometries(rng, tmp_path, taps, fft,
+                                              ratio, eq):
+    """The kernel's stage plan replayed at the card's parity geometries
+    (the folded G the card's bundle carries) equals the plain version."""
+    _, cfg = _cfgs(taps, fft, ratio)
+    if taps == 1025:
+        h = np.zeros(taps)
+        h[0] = 1.0
+    else:
+        h = rng.normal(size=taps) * np.exp(-np.arange(taps) / (taps / 8))
+    response = _eq_response(tmp_path, fft) if eq else None
+    bundle = tos._folded_g(tos.filter_spectrum(h, fft, response), cfg)
+    n = 2 if fft < 100000 else 1
+    frames = (rng.normal(size=(n, cfg.frame_in)) * 0.3).astype(np.float32)
+    ref = tos.upsample_frames(torch.from_numpy(frames), bundle, cfg).numpy()
+    got = emulate_kernel(frames.astype(np.float64), bundle, cfg)
+    assert not np.isnan(got).any(), "an output sample was never written"
+    assert _rel(got, ref) < REL_TOL
+
+
+@pytest.mark.parametrize("n", [16, 32, 64, 128, 256, 512, 1024, 2048, 4096,
+                               8192])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_stockham_passes_match_dft(rng, n, inverse):
+    """The kernel's in-shared-memory FFT (pass sequence, butterfly and
+    store indices, twiddle table indices) at every length it instantiates
+    for the bundled geometries: float64 replay against numpy's FFT (the
+    table's float32 rounding bounds the difference)."""
+    x = rng.normal(size=n) + 1j * rng.normal(size=n)
+    ref = np.fft.ifft(x) * n if inverse else np.fft.fft(x)
+    assert _rel(_stockham(x, inverse), ref) < 1e-6
+
+
+@pytest.mark.parametrize("taps,fft", [(80001, 131072), (8001, 16384)])
+def test_folded_plain_equals_absorbed_and_jax(rng, taps, fft):
+    """At ratio 16 the plain folded branch (the G bundle the card folds)
+    equals the absorbed plain branch (the CPU's GW bundle) and the JAX
+    package's upsample_blocks on the same input."""
+    jcfg, cfg = _cfgs(taps, fft, 16)
+    h = rng.normal(size=taps) * np.exp(-np.arange(taps) / (taps / 8))
+    x = (rng.normal(size=(1, cfg.halo_in + 2 * cfg.block_in)) * 0.3).astype(
+        np.float32)
+    spec = tos.filter_spectrum(h, fft)
+    folded = tos._folded_g(spec, cfg)
+    absorbed = tos.fold_bundle(spec, cfg)
+    assert absorbed.absorbed and not folded.absorbed
+    assert tuple(folded.weights.shape) == (fft // 2, 2)
+    yf = tos.upsample_blocks(torch.from_numpy(x), folded, cfg).numpy()
+    ya = tos.upsample_blocks(torch.from_numpy(x), absorbed, cfg).numpy()
+    ref = np.asarray(jos.upsample_blocks(
+        jnp.asarray(x), jos.filter_spectrum(h, fft), jcfg))
+    assert yf.shape == ya.shape == ref.shape
+    assert _rel(yf, ya) < REL_TOL
+    assert _rel(yf, ref) < REL_TOL
+
+
+@pytest.mark.cuda
+def test_fold_bundle_on_cuda_builds_g_not_gw():
+    """On a CUDA device the swap folds G (h bins; G1 and G2 at ratio 1),
+    never the 32 MB GW, at every ratio."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: folds on the card's device")
+    dev = torch.device("cuda")
+    for taps, fft, ratio in [(80001, 131072, 16), (8001, 16384, 4),
+                             (1025, 4096, 1)]:
+        _, cfg = _cfgs(taps, fft, ratio)
+        b = tos.fold_bundle(tos.filter_spectrum(np.ones(taps), fft,
+                                                device=dev), cfg)
+        assert not b.absorbed and b.weights.device.type == "cuda"
+        assert tuple(b.weights.shape) == (
+            (2, fft // 2, 2) if ratio == 1 else (fft // 2, 2))
 
 
 def test_every_shipped_sidecar_is_in_the_kernel_envelope():
@@ -151,7 +291,11 @@ def test_every_shipped_sidecar_is_in_the_kernel_envelope():
                                     meta["block_size"],
                                     meta["upsample_factor"])
         plan = ff.kernel_plan(cfg)
-        assert plan["absorbed"] == (cfg.ratio >= 4), path
+        assert plan["fused"] == (plan["m"] <= ff.FUSED_MAX), path
+        stages = [plan["P2"], plan["Q2"]]
+        if not plan["fused"]:
+            stages += [plan["P"], plan["Q"]]
+        assert all(ff.STAGE_MIN <= s <= ff.STAGE_MAX for s in stages), path
         assert plan["kept"] * plan["P2"] >= cfg.block_size // 2, path
 
 
@@ -167,15 +311,24 @@ def test_kernel_refuses_odd_overlap(taps, fft):
 def test_ratio_one_plan_reads_both_halves():
     _, cfg = _cfgs(1025, 4096, 1)
     pl = ff.kernel_plan(cfg)
-    assert pl["halves"] and not pl["absorbed"]
-    assert (pl["P2"], pl["Q2"], pl["r"], pl["depth_i1"]) == (64, 32, 128, 64)
-    assert ff.flops_per_launch(cfg)["I1"] == 8 * 2048 * 64
+    assert pl["halves"] and pl["fused"]
+    assert (pl["m"], pl["h"], pl["P2"], pl["Q2"]) == (4096, 2048, 64, 32)
+    # Two complex multiplies and an add per bin (14 FLOP), 32 inverse
+    # 64-point FFTs (two radix-8 passes: 8 x 56 + 8 x (56 + 7 x 6) = 1232
+    # FLOP) and the twiddle.
+    assert ff.flops_per_launch(cfg)["I1"] == 14 * 2048 + 32 * 1232 \
+        + 6 * 2048
 
 
 def test_flops_per_output_sample_production_16x():
     _, cfg = _cfgs(80001, 131072, 16)
     per_sample = ff.flops_per_frame(cfg) / cfg.block_size
-    assert int(per_sample) == 1334  # the absorbed form's own count
+    # FFT stages: 4.66 MFLOP a frame (the dense-GEMM form took 1334 FLOP
+    # per output sample): the 4096-point forward and 4097 untangled bins,
+    # the filter, 256 + 256 FFTs of 256 points and the twiddle.
+    assert ff.flops_per_frame(cfg) == (
+        179200 + 14 * 4097 + 6 * 65536 + 512 * 7104 + 6 * 65536)
+    assert int(per_sample) == 91
 
 
 def test_build_targets_sm90a():
@@ -191,11 +344,34 @@ def test_build_root_env_override_and_checkout_default(monkeypatch, tmp_path):
         os.path.join(REPO, "build", "totton_tpu_torch"))
 
 
-def test_flops_per_launch_sum_to_frame():
-    _, cfg = _cfgs(80001, 131072, 16)
+@pytest.mark.parametrize("n,flops", [
+    (8, 56), (16, 2 * 56 + 8 * (4 + 6)), (64, 8 * 56 + 8 * (56 + 7 * 6)),
+    (256, 1232 * 4 + 64 * (16 + 3 * 6)), (4096, 179200)])
+def test_fft_flops_follow_the_pass_plan(n, flops):
+    """One radix-8 butterfly is 56 FLOP (two 4-point DFTs, two W_8
+    products, eight adds), a radix-4 one 16, a radix-2 one 4; every pass
+    after the first adds R - 1 complex products a butterfly."""
+    assert ff._fft_flops(n) == flops
+
+
+@pytest.mark.parametrize("ratio,launches", [
+    (16, ["F", "I1", "I2"]), (2, ["F1", "F2", "I1", "I2"])])
+def test_flops_per_launch_sum_to_frame(ratio, launches):
+    _, cfg = _cfgs(80001, 131072, ratio)
     per_launch = ff.flops_per_launch(cfg)
-    assert sorted(per_launch) == ["F1", "F2", "I1", "I2"]
+    assert sorted(per_launch) == launches
+    assert sorted(ff.bytes_per_launch(cfg)) == launches
     assert sum(per_launch.values()) == ff.flops_per_frame(cfg)
+
+
+def test_bound_bytes_production_16x():
+    """Frames in and blocks out once per frame, G and the tables once."""
+    _, cfg = _cfgs(80001, 131072, 16)
+    pl = ff.kernel_plan(cfg)
+    consts = sum(v.numel() * 4 for v in ff.kernel_consts(cfg, "cpu").values())
+    assert ff.bound_bytes(cfg, 1024) == (
+        1024 * 4 * (8192 + 51072) + 8 * 65536 + consts)
+    assert pl["fused"] and (pl["P2"], pl["Q2"], pl["k2_0"]) == (256, 256, 156)
 
 
 # Frame counts the main path hands the kernel: a full 512-block stereo

@@ -104,6 +104,9 @@ def test_session_matches_offline(coefficients_dir, rng, tmp_path):
 
 
 def test_port_imports_no_jax(tmp_path):
+    """The port's modules, its CLIs, its control and serve-client copies
+    and chip_smoke.py load, and a tiny file-mode stream runs on the CPU,
+    with neither jax nor any module of the JAX package imported."""
     env = {k: v for k, v in os.environ.items()
            if k not in ("TOTTON_PLATFORM", "PYTHONPATH")}
     env["PYTHONPATH"] = REPO
@@ -113,17 +116,28 @@ def test_port_imports_no_jax(tmp_path):
         "import totton_tpu_torch.cli.stream, totton_tpu_torch.io.stream\n"
         "import totton_tpu_torch.serve, totton_tpu_torch.cli.serve\n"
         "import totton_tpu_torch.engine.chain, totton_tpu_torch.engine.crossfeed\n"
-        "import totton_tpu.control.daemon\n"
+        "import totton_tpu_torch.control.daemon, totton_tpu_torch.control.client\n"
+        "import totton_tpu_torch.control.follower, totton_tpu_torch.control.wiring\n"
+        "import totton_tpu_torch.io.serve_client, totton_tpu_torch.filters.hrtf\n"
+        "import chip_smoke\n"
         "from totton_tpu_torch.ops import overlap_save as o, fused_frames as f\n"
         "cfg = o.OverlapSaveConfig(257, 2048, 1792, 4)\n"
         "b = o.fold_bundle(o.filter_spectrum(np.ones(257), 2048), cfg)\n"
         "x = torch.zeros((2, cfg.halo_in + cfg.block_in))\n"
         "assert f.fused_upsample_blocks(x, b, cfg).shape == (2, 1792)\n"
-        "from totton_tpu_torch.eq import resolve_eq_response\n"
+        "from totton_tpu_torch.control.wiring import resolve_eq_response\n"
         "open('eq.txt', 'w').write('Filter 1: ON PK Fc 1000 Hz Gain 3 dB Q 1')\n"
         "assert resolve_eq_response('eq.txt', None, 4096, 44100)[0].shape "
         "== (2049,)\n"
-        "assert 'jax' not in sys.modules, 'jax imported'\n"
+        "from totton_tpu_torch.io.wav import read_wav, write_wav\n"
+        "from totton_tpu_torch.testing.signals import sine\n"
+        "write_wav('in.wav', sine(1000.0, 0.2, 44100, channels=2), 44100)\n"
+        "rc = totton_tpu_torch.cli.stream.main(['--in', 'in.wav', '--out', "
+        "'out.wav', '--eq-profile', 'eq.txt', '--device', 'cpu'])\n"
+        "assert rc == 0 and read_wav('out.wav')[0].shape == (2, 8820)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'totton_tpu'))\n"
+        "assert not bad, bad\n"
         "print('NOJAX_OK')\n")
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=tmp_path,
                           capture_output=True, text=True, timeout=120)
@@ -133,11 +147,12 @@ def test_port_imports_no_jax(tmp_path):
 
 @pytest.mark.parametrize("use_config", [False, True])
 def test_eq_resolution_equals_the_reference(tmp_path, use_config):
-    """The port's resolve_eq_response (its own copies of the APO parser and
-    the biquads; the JAX eq package loads jax) gives the reference's
-    response bit for bit, from a profile path or from config.json."""
+    """The port's resolve_eq_response (its copy of control/wiring.py over
+    its own copies of the APO parser and the biquads; the JAX eq package
+    loads jax) gives the reference's response bit for bit, from a profile
+    path or from config.json."""
     from totton_tpu.control.wiring import resolve_eq_response as ref
-    from totton_tpu_torch.eq import resolve_eq_response
+    from totton_tpu_torch.control.wiring import resolve_eq_response
 
     profile = tmp_path / "eq.txt"
     profile.write_text("Preamp: -4 dB\n"
@@ -286,7 +301,8 @@ def test_cli_f32_wire_format_is_socket_only(tmp_path, rng, capsys):
 
 
 def test_cli_passes_socket_reconnect_to_the_source(monkeypatch, tmp_path):
-    from totton_tpu.io import devices
+    from totton_tpu_torch.io import devices
+    from totton_tpu_torch.io.pcm import PcmFormat as PortPcmFormat
 
     seen = {}
     real = devices.open_source
@@ -300,7 +316,7 @@ def test_cli_passes_socket_reconnect_to_the_source(monkeypatch, tmp_path):
                          "--duration", "0.01", "--format", "s16",
                          "--socket-reconnect", "2.5", "--device", "cpu"])
     assert rc == 0
-    assert seen == {"fmt": PcmFormat.S16_LE, "reconnect": 2.5}
+    assert seen == {"fmt": PortPcmFormat.S16_LE, "reconnect": 2.5}
 
 
 def test_soft_reset_targets_outermost_engine(coefficients_dir, tmp_path,
@@ -308,8 +324,8 @@ def test_soft_reset_targets_outermost_engine(coefficients_dir, tmp_path,
     """With --crossfeed, SOFT_RESET must clear the chain (its FIFO), not
     just the inner upsampler; the leader's daemon publishes on
     --control-pub-endpoint."""
-    from totton_tpu.control import daemon as daemon_mod
     from totton_tpu.filters.hrtf import generate_all
+    from totton_tpu_torch.control import daemon as daemon_mod
     from totton_tpu_torch.engine.chain import CrossfeedChain
 
     cf = str(generate_all(tmp_path, sizes=["M"], families=["44k"])[0])

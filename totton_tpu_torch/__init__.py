@@ -3,10 +3,13 @@
 The JAX package (``totton_tpu``) stays the reference; this package computes
 the same functions with torch tensors and, on a CUDA device, runs the frame
 computation through hand-written kernels (``totton_tpu_torch/csrc``). It
-never imports jax. The framework-free host modules of the JAX package
-(``filters/sidecar``, ``io/{pcm,devices,wav,ring_buffer,sockets}``,
-``eq/{apo,biquad}``, ``control``, ``utils``, ``testing``) are reused as they
-are.
+imports neither jax nor anything of the JAX package: the framework-free
+host modules it needs (``filters/{sidecar,hrtf}``, ``io/{pcm,devices,
+formats,wav,ring_buffer,sockets,serve_client}``, ``native``,
+``eq/{apo,biquad}``, ``control``, ``utils/{intmath,profiling}``,
+``web/{constants,services/config}``, ``testing/{signals,validate_output}``)
+are copies at the same relative paths, held to the reference by
+``tests/test_torch_copies.py``.
 
 The signal path is float32 throughout and gated at > 125 dB against a
 float64 oracle, so TF32 is switched off for every matmul on import.

@@ -136,13 +136,13 @@ def main(argv: list[str] | None = None) -> int:
         print(f"error: --device: {e}", file=sys.stderr)
         return 2
 
-    from totton_tpu.control.wiring import (
+    from totton_tpu_torch.control.wiring import (
         persist_phase,
         read_config_phase,
+        resolve_eq_response,
         resolve_startup_phase,
     )
-    from totton_tpu.filters.sidecar import load_filter
-    from totton_tpu_torch.eq import resolve_eq_response
+    from totton_tpu_torch.filters.sidecar import load_filter
     from totton_tpu_torch.engine.selector import (
         FilterSelectionError,
         resolve_filter_path,
@@ -242,7 +242,7 @@ def main(argv: list[str] | None = None) -> int:
             return extra
 
         if is_leader:
-            from totton_tpu.control.daemon import ControlDaemon
+            from totton_tpu_torch.control.daemon import ControlDaemon
 
             daemon = ControlDaemon(
                 endpoint=args.control_endpoint,
@@ -264,7 +264,7 @@ def main(argv: list[str] | None = None) -> int:
                                 server.request_stop()),
                 daemon=True, name="totton-serve-shutdown-watch").start()
         if args.control_follow:
-            from totton_tpu.control.follower import ControlFollower
+            from totton_tpu_torch.control.follower import ControlFollower
 
             follower = ControlFollower(
                 args.control_follow,

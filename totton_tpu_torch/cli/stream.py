@@ -144,15 +144,17 @@ def main(argv: list[str] | None = None) -> int:
         print(f"error: --device: {e}", file=sys.stderr)
         return 2
 
-    from totton_tpu.control.wiring import (
+    from totton_tpu_torch.control.wiring import (
         persist_phase,
         read_config_phase,
         resolve_startup_phase,
     )
-    from totton_tpu.filters.sidecar import FilterSidecar, LoadedFilter, load_filter
-    from totton_tpu.io.devices import open_sink, open_source
-    from totton_tpu.io.pcm import PcmFormat, parse_format
-    from totton_tpu_torch.eq import resolve_eq_response as _resolve_eq
+    from totton_tpu_torch.control.wiring import (
+        resolve_eq_response as _resolve_eq,
+    )
+    from totton_tpu_torch.filters.sidecar import FilterSidecar, LoadedFilter, load_filter
+    from totton_tpu_torch.io.devices import open_sink, open_source
+    from totton_tpu_torch.io.pcm import PcmFormat, parse_format
     from totton_tpu_torch.engine.selector import (
         FilterSelectionError,
         resolve_filter_path,
@@ -306,7 +308,7 @@ def main(argv: list[str] | None = None) -> int:
     # PHASE_TYPE_SET and SOFT_RESET act on the live engine.
     daemon = None
     if args.control_endpoint:
-        from totton_tpu.control.daemon import ControlDaemon
+        from totton_tpu_torch.control.daemon import ControlDaemon
 
         # Filter/EQ swaps act on the inner upsampler (the chain's post
         # stage is filter-agnostic), but SOFT_RESET clears the OUTERMOST
@@ -352,7 +354,7 @@ def main(argv: list[str] | None = None) -> int:
                     current_phase["value"] = ph
                     if daemon is not None:
                         daemon.phase_type = ph
-                from totton_tpu.web.services.config import load_config
+                from totton_tpu_torch.web.services.config import load_config
 
                 settings = load_config(Path(args.config_path))
                 if settings.alsa and settings.alsa.dither is not None:

@@ -20,8 +20,8 @@ import threading
 import numpy as np
 import torch
 
-from totton_tpu.filters.sidecar import LoadedFilter
-from totton_tpu.io.pcm import PcmFormat
+from totton_tpu_torch.filters.sidecar import LoadedFilter
+from totton_tpu_torch.io.pcm import PcmFormat
 from totton_tpu_torch import resolve_device
 from totton_tpu_torch.ops import device_pcm as _dp
 from totton_tpu_torch.ops.overlap_save import (
@@ -69,7 +69,7 @@ def _fade_width_blocks(n: int, block_size: int) -> int:
     take a logarithmic set of shapes. Overlap-save block j depends only on
     input up to (j+1)*block_in, so zero-padding the input prefix to the
     rounded width cannot change the first n samples."""
-    from totton_tpu.utils.intmath import pow2_ceil
+    from totton_tpu_torch.utils.intmath import pow2_ceil
 
     return pow2_ceil(-(-n // block_size))
 
@@ -146,7 +146,7 @@ class StreamingUpsampler:
         # in host float before quantizing.
         self._host_ditherer = None
         if device_pcm is not None and self._pcm_dither:
-            from totton_tpu.io.pcm import TpdfDitherer
+            from totton_tpu_torch.io.pcm import TpdfDitherer
 
             self._host_ditherer = TpdfDitherer(self._pcm_seed)
 
@@ -212,7 +212,7 @@ class StreamingUpsampler:
         with self._lock:
             self._pcm_dither = bool(enabled)
             if enabled and self._host_ditherer is None:
-                from totton_tpu.io.pcm import TpdfDitherer
+                from totton_tpu_torch.io.pcm import TpdfDitherer
 
                 self._host_ditherer = TpdfDitherer(self._pcm_seed)
         return True
@@ -309,7 +309,7 @@ class StreamingUpsampler:
         y = y.copy()
         y[:, :n] = fetch(old_handle)[:, :n] * (1.0 - ramp) + y[:, :n] * ramp
         if self.device_pcm is not None:
-            from totton_tpu.io.pcm import quantize_s16_host
+            from totton_tpu_torch.io.pcm import quantize_s16_host
 
             return quantize_s16_host(
                 y, self._host_ditherer if self._pcm_dither else None)

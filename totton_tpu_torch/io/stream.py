@@ -27,9 +27,9 @@ import time
 
 import numpy as np
 
-from totton_tpu.io.devices import AudioSink, AudioSource, SinkClosedError
-from totton_tpu.io.ring_buffer import make_ring_buffer
-from totton_tpu.utils.profiling import BlockTimer
+from totton_tpu_torch.io.devices import AudioSink, AudioSource, SinkClosedError
+from totton_tpu_torch.io.ring_buffer import make_ring_buffer
+from totton_tpu_torch.utils.profiling import BlockTimer
 from totton_tpu_torch.engine.upsampler import StreamingUpsampler
 
 
@@ -250,7 +250,7 @@ def _quantize_nblocks(ready: int, max_batch_blocks: int,
         return max_batch_blocks if ready >= max_batch_blocks else 1
     if ready >= max_batch_blocks:
         return max_batch_blocks
-    from totton_tpu.utils.intmath import pow2_floor
+    from totton_tpu_torch.utils.intmath import pow2_floor
 
     return pow2_floor(ready)
 

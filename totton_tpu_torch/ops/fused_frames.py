@@ -3,17 +3,19 @@
 Replaces the TPU kernel ``totton_tpu/experimental/pallas_kernels.py``
 (``_fused_kernel``, :284-317, launched by ``pl.pallas_call`` at :355) and
 keeps its contract: ``fused_upsample_frames(frames [N, m] f32, bundle,
-cfg) -> [N, block_size] f32``, the overlap region never computed, the
+cfg) -> [N, block_size] f32``, the overlap region never stored, the
 even/odd interleave written in place.
 
-What bounds it on an H100: fp32 FMA on the CUDA cores. The absorbed form
-needs 1334 FLOP per output sample at 16x/80k (``flops_per_frame``), most
-of it in the two inverse stages. One frame's half-size
-inverse (512 KB at h = 65536) does not fit in a block's 227 KB of shared
-memory, and the TPU kernel's one frame per program starved its matrix
-unit, so the design splits each frame over four batched complex-GEMM
-launches with many frames along every product's rows (the .cu header has
-the algebra). TF32 is never used: the signal path is gated at > 125 dB.
+Design for an H100: every DFT stage is a batch of short Stockham FFTs in
+shared memory (the .cu header has the algebra). The forward transform is
+one launch where a frame fits a block (m <= ``FUSED_MAX``: one m/2-point
+FFT of the packed real frame, untangled as it is stored), else two; the
+inverse is two launches (I1: the filter formed from the folded G as the
+loader reads X, P2-point FFTs and the twiddle; I2: Q2-point FFTs, the
+kept columns stored interleaved). What bounds it is bytes, not FLOPs: at
+16x/80k a frame needs 4.7 MFLOP (``flops_per_frame``) against about
+1.4 MB of scratch traffic. fp32 only; TF32 is never used (the signal
+path is gated at > 125 dB).
 
 Rules: a CPU tensor runs the plain version (``overlap_save.upsample_frames``);
 a CUDA tensor runs the kernel or raises. ``LAUNCHES`` counts kernel calls.
@@ -32,8 +34,6 @@ from totton_tpu_torch.ops import fft as _fft
 from totton_tpu_torch.ops.overlap_save import (
     FoldedBundle,
     OverlapSaveConfig,
-    _stage2_matrix,
-    absorbed_plan,
     upsample_frames,
 )
 
@@ -41,10 +41,17 @@ from totton_tpu_torch.ops.overlap_save import (
 #: CUDA tensor). Reset it to 0 to count the launches of one run.
 LAUNCHES = 0
 
+#: Largest frame whose forward transform runs in one launch, as one
+#: m/2-point complex FFT per block (the .cu's ``dispatch<8192>``: 64 KB of
+#: shared memory); larger frames take the two-launch four-step forward.
+FUSED_MAX = 16384
+#: Stage lengths the .cu instantiates for the four-step launches.
+STAGE_MIN, STAGE_MAX = 16, 512
+
 
 def _two_stage(n: int) -> tuple[int, int] | None:
-    """(P, Q) split of a power-of-two n for the kernel's two GEMM stages:
-    the plain path's factorization where it has two stages, a balanced
+    """(P, Q) split of a power-of-two n for a four-step transform: the
+    plain path's factorization where it has two stages, a balanced
     power-of-two split where one DFT stage would do (n <= 512); any split
     computes the same DFT."""
     factors = _fft._factorize(n)
@@ -56,12 +63,18 @@ def _two_stage(n: int) -> tuple[int, int] | None:
     return None
 
 
+def _in_stage_range(*sizes: int) -> bool:
+    return all(STAGE_MIN <= s <= STAGE_MAX for s in sizes)
+
+
 @functools.lru_cache(maxsize=64)
 def kernel_plan(cfg: OverlapSaveConfig) -> dict:
     """Static sizes the kernel runs with for ``cfg`` (every ratio, even
-    overlap). The splits may differ from the plain path's. At ratio 1
-    (``halves``) I1 sums the spectrum's two halves: depth P2, X's row
-    stride r = 2*P2."""
+    overlap): the forward (``fused``: one m/2-point FFT per frame, else
+    the (P, Q) four-step), the inverse split h = P2 * Q2 (the plain folded
+    path's balanced one: its I1 tile reads 128-byte rows at h = 65536),
+    j0 and the first kept stage-2 column k2_0. At ratio 1 (``halves``)
+    I1's loader sums the spectrum's two halves."""
     if cfg.overlap % 2 != 0:
         # (Odd overlaps exist only at ratio 1: (taps - 1) % ratio == 0.)
         raise NotImplementedError(
@@ -69,23 +82,30 @@ def kernel_plan(cfg: OverlapSaveConfig) -> dict:
             "frame kernel (as in the JAX package)")
     m = cfg.frame_in
     h = cfg.fft_size // 2
+    fused = 2 * STAGE_MIN <= m <= FUSED_MAX
     fwd = _two_stage(m)
-    if fwd is None:
+    if not fused and (fwd is None or not _in_stage_range(*fwd)):
         raise NotImplementedError(f"frame_in {m} outside the kernel's range")
-    p, q = fwd
-    plan = absorbed_plan(cfg)
-    split = plan[:2] if plan is not None else _two_stage(h)
-    if split is None or m % split[1] != 0:
+    p, q = fwd if fwd is not None else (m, 1)
+    split = _two_stage(h)
+    if split is None or not _in_stage_range(*split):
         raise NotImplementedError(f"fft_size {cfg.fft_size} outside the "
                                   "kernel's range")
     p2, q2 = split
     j0 = cfg.overlap // 2
     k2_0 = j0 // p2
-    halves = cfg.ratio == 1
-    return dict(m=m, P=p, Q=q, h=h, P2=p2, Q2=q2, r=m // q2,
-                depth_i1=p2 if halves else m // q2, kept=q2 - k2_0,
-                k2_0=k2_0, j0=j0, block=cfg.block_size,
-                absorbed=plan is not None, halves=halves)
+    return dict(m=m, P=p, Q=q, h=h, P2=p2, Q2=q2, kept=q2 - k2_0,
+                k2_0=k2_0, j0=j0, block=cfg.block_size, fused=fused,
+                halves=cfg.ratio == 1)
+
+
+@functools.lru_cache(maxsize=32)
+def _fwd_table(n: int):
+    """W_n^e = exp(-2 pi i e / n), e = 0 .. n-1: angles in float64 with the
+    exact (e mod n) reduction, stored float32 (an inverse stage multiplies
+    by the conjugate)."""
+    ang = -2.0 * np.pi * np.arange(n) / n
+    return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
 
 
 def _complex(builder, *args) -> tuple[np.ndarray]:
@@ -96,54 +116,111 @@ def _complex(builder, *args) -> tuple[np.ndarray]:
 
 
 def kernel_consts(cfg: OverlapSaveConfig, device) -> dict[str, torch.Tensor]:
-    """The kernel's static complex constants for ``cfg`` as [..., 2]
-    float32 tensors on ``device`` (cached per device):
-    w_p [P, P] and w_q [Q, Q] (forward DFTs), tw_m [P, Q] (forward
-    twiddle), w2 [Q2, kept] (pruned inverse stage 2) and, for the folded
-    path, w_p2 [P2, P2] (inverse stage 1) and tw_h [P2, Q2]."""
+    """The kernel's twiddle tables for ``cfg`` as [..., 2] float32 tensors
+    on ``device`` (cached per device): tw_fwd, the forward W_{m/2}^e of
+    the half-size FFT then W_m^j, j = 0 .. m/2, of the untangle (fused),
+    or W_P^e then W_Q^e; tw_m [P, Q] = W_m^{k1 q} (two-launch forward
+    only); tw_p2 and tw_q2, the forward W_P2^e and W_Q2^e of the inverse
+    stages; tw_h [Q2, P2] = W_h^{+k1' q2}."""
     pl = kernel_plan(cfg)
 
     def get(builder, *args):
         return _fft.device_consts(_complex, (builder, *args), device)[0]
 
+    if pl["fused"]:
+        half = pl["m"] // 2
+        w_m = get(_fwd_table, pl["m"])[:half + 1]
+        tw_fwd = torch.cat([get(_fwd_table, half), w_m])
+    else:
+        tw_fwd = torch.cat([get(_fwd_table, pl["P"]),
+                            get(_fwd_table, pl["Q"])])
     out = {
-        "w_p": get(_fft._dft_matrix, pl["P"], False),
-        "tw_m": get(_fft._twiddle, pl["P"], pl["Q"], False),
-        "w_q": get(_fft._dft_matrix, pl["Q"], False),
-        "w2": get(_stage2_matrix, pl["Q2"], pl["P2"], pl["k2_0"]),
+        "tw_fwd": tw_fwd,
+        "tw_p2": get(_fwd_table, pl["P2"]),
+        "tw_q2": get(_fwd_table, pl["Q2"]),
+        "tw_h": get(_fft._twiddle, pl["Q2"], pl["P2"], True),
     }
-    if not pl["absorbed"]:
-        out["w_p2"] = get(_fft._dft_matrix, pl["P2"], True)
-        out["tw_h"] = get(_fft._twiddle, pl["P2"], pl["Q2"], True)
+    if not pl["fused"]:
+        out["tw_m"] = get(_fft._twiddle, pl["P"], pl["Q"], False)
     return out
 
 
+#: Real FLOPs of one radix-R butterfly in registers (``dft<R>``: its adds
+#: and, at radix 8, the two W_8 products), and of one complex product.
+_BUTTERFLY_FLOPS = {2: 4, 4: 16, 8: 56}
+_CMUL_FLOPS = 6
+
+
+def _fft_flops(length: int) -> int:
+    """Real FLOPs of one ``length``-point FFT as ``fft_passes`` runs it:
+    radix-8 passes, then one radix-2 or radix-4 pass; every butterfly
+    after the first pass also takes R - 1 twiddle products."""
+    flops, ns = 0, 1
+    while ns < length:
+        r = min(8, length // ns)
+        twiddles = (r - 1) * _CMUL_FLOPS if ns > 1 else 0
+        flops += length // r * (_BUTTERFLY_FLOPS[r] + twiddles)
+        ns *= r
+    return flops
+
+
 def flops_per_launch(cfg: OverlapSaveConfig) -> dict[str, int]:
-    """Real FLOPs per frame of each of the kernel's four complex products,
-    keyed F1, F2, I1, I2 (8 per complex multiply-add; F1 counted as real
-    input, 4 per MAC; the ratio-1 sum of halves in I1's loader is not
-    counted)."""
+    """Real FLOPs per frame that each launch needs, keyed F (fused
+    forward) or F1 and F2, then I1 and I2: the radix passes of its FFTs
+    (``_fft_flops``), a four-step split's inter-stage twiddle (one complex
+    product a point), the filter (one complex product a bin; ratio 1: two
+    and an add, 14). The fused forward's untangle is counted once for each
+    of the m/2 + 1 bins it determines (14 each); the store computes each
+    twice and writes the other half as conjugates. The two-launch forward
+    runs the real frame as complex data, and is counted at half of that:
+    what a real input needs."""
     pl = kernel_plan(cfg)
-    return {
-        "F1": 4 * pl["m"] * pl["P"],
-        "F2": 8 * pl["m"] * pl["Q"],
-        "I1": 8 * pl["h"] * pl["depth_i1"],
-        "I2": 8 * pl["P2"] * pl["Q2"] * pl["kept"],
-    }
+    m, h = pl["m"], pl["h"]
+    if pl["fused"]:
+        fwd = {"F": _fft_flops(m // 2) + 14 * (m // 2 + 1)}
+    else:
+        fwd = {"F1": (pl["Q"] * _fft_flops(pl["P"]) + _CMUL_FLOPS * m) // 2,
+               "F2": pl["P"] * _fft_flops(pl["Q"]) // 2}
+    filt = 14 * h if pl["halves"] else _CMUL_FLOPS * h
+    return {**fwd,
+            "I1": filt + pl["Q2"] * _fft_flops(pl["P2"]) + _CMUL_FLOPS * h,
+            "I2": pl["P2"] * _fft_flops(pl["Q2"])}
 
 
 def flops_per_frame(cfg: OverlapSaveConfig) -> int:
-    """Real FLOPs the kernel's four complex products need per frame."""
+    """Real FLOPs the kernel's launches need per frame."""
     return sum(flops_per_launch(cfg).values())
+
+
+def bytes_per_launch(cfg: OverlapSaveConfig) -> dict[str, int]:
+    """Device-memory bytes each launch reads and writes per frame (the
+    frames, the X, B and C scratch, the output; the filter G and the
+    twiddle tables are shared by all frames and left out)."""
+    pl = kernel_plan(cfg)
+    m, h, block = pl["m"], pl["h"], pl["block"]
+    if pl["fused"]:
+        fwd = {"F": 4 * m + 8 * m}
+    else:
+        fwd = {"F1": 4 * m + 8 * m, "F2": 8 * m + 8 * m}
+    return {**fwd, "I1": 8 * m + 8 * h, "I2": 8 * h + 4 * block}
+
+
+def bound_bytes(cfg: OverlapSaveConfig, n_frames: int) -> int:
+    """The least bytes a dispatch of ``n_frames`` must move: each frame
+    read once, each output block written once, the filter G and the
+    twiddle tables read once."""
+    pl = kernel_plan(cfg)
+    consts = sum(v.numel() * 4 for v in kernel_consts(cfg, "cpu").values())
+    g = 8 * pl["h"] * (2 if pl["halves"] else 1)
+    return n_frames * 4 * (pl["m"] + pl["block"]) + g + consts
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_frames")
     fn = lib.totton_fused_frames
     if fn.argtypes is None:
-        vp, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([vp] * 10 + [ctypes.c_longlong] + [vp] * 2
-                       + [i32] * 13 + [vp])
+        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [vp] * 11 + [i64] + [i32] * 9 + [vp]
         fn.restype = i32
         lib.totton_cuda_error_string.argtypes = [i32]
         lib.totton_cuda_error_string.restype = ctypes.c_char_p
@@ -168,38 +245,32 @@ def _launch_cuda(frames: torch.Tensor, bundle: FoldedBundle,
     dev = frames.device
     n = frames.shape[0]
     _check(frames, "frames", dev, (n, pl["m"]))
-    if bundle.absorbed != pl["absorbed"]:
-        raise ValueError("bundle was folded for another geometry")
-    w = bundle.weights
-    if pl["absorbed"]:
-        _check(w, "bundle.weights", dev, (pl["Q2"], pl["r"], pl["P2"], 2))
-    elif pl["halves"]:
-        _check(w, "bundle.weights", dev, (2, pl["h"], 2))
-    else:
-        _check(w, "bundle.weights", dev, (pl["h"], 2))
+    if bundle.absorbed or bundle.classic:
+        raise ValueError("the kernel takes the folded filter G: fold the "
+                         "bundle on the CUDA device (fold_bundle)")
+    g = bundle.weights
+    _check(g, "bundle.weights", dev,
+           (2, pl["h"], 2) if pl["halves"] else (pl["h"], 2))
     out = torch.empty((n, pl["block"]), dtype=torch.float32, device=dev)
     if n == 0:
         return out
     consts = kernel_consts(cfg, dev)
-    scratch_b = torch.empty((n, pl["m"], 2), dtype=torch.float32, device=dev)
-    scratch_x = torch.empty_like(scratch_b)
-    scratch_c = torch.empty((n, pl["h"], 2), dtype=torch.float32, device=dev)
-    if pl["absorbed"]:
-        g_nat, w1, w1_stride, tw_h = 0, w.data_ptr(), pl["r"] * pl["P2"], 0
-    else:
-        g_nat, w1, w1_stride = w.data_ptr(), consts["w_p2"].data_ptr(), 0
-        tw_h = consts["tw_h"].data_ptr()
+    scratch_x = torch.empty((n, pl["m"], 2), dtype=torch.float32, device=dev)
+    scratch_b = (None if pl["fused"] else torch.empty_like(scratch_x))
+    scratch_c = torch.empty((n, pl["h"], 2), dtype=torch.float32,
+                            device=dev)
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.totton_fused_frames(
         frames.data_ptr(), out.data_ptr(),
-        scratch_b.data_ptr(), scratch_x.data_ptr(), scratch_c.data_ptr(),
-        consts["w_p"].data_ptr(), consts["tw_m"].data_ptr(),
-        consts["w_q"].data_ptr(), g_nat, w1, w1_stride, tw_h,
-        consts["w2"].data_ptr(),
-        n, pl["m"], pl["P"], pl["Q"], pl["P2"], pl["Q2"], pl["r"],
-        pl["kept"], pl["k2_0"], pl["j0"], pl["block"],
-        pl["P2"].bit_length() - 1, int(pl["halves"]), stream)
+        0 if scratch_b is None else scratch_b.data_ptr(),
+        scratch_x.data_ptr(), scratch_c.data_ptr(), g.data_ptr(),
+        consts["tw_fwd"].data_ptr(),
+        consts["tw_m"].data_ptr() if "tw_m" in consts else 0,
+        consts["tw_p2"].data_ptr(), consts["tw_q2"].data_ptr(),
+        consts["tw_h"].data_ptr(), n,
+        pl["m"], pl["P"], pl["Q"], pl["P2"], pl["Q2"], pl["block"],
+        pl["j0"], int(pl["fused"]), int(pl["halves"]), stream)
     if rc != 0:
         msg = lib.totton_cuda_error_string(rc).decode()
         raise RuntimeError(f"fused_frames launch failed: {msg} ({rc})")

@@ -8,13 +8,14 @@ multiply collapse into Z = E*G, and a pruned half-size inverse emits the
 even/odd interleaved output block without ever computing the overlap
 region.
 
-Three frame programs, chosen by geometry:
+Three frame programs, chosen by the bundle (``fold_bundle``):
 
-- **absorbed** (ratio >= 4): tiling, filter and inverse stage 1 collapse
-  into one weight tensor GW[k1, s, q] (``_absorbed_stacked``); stage 2 is
-  pruned and writes the interleave directly.
-- **folded** (ratio 2 and ratio 1): Z = tile(X)*G, then
-  ``_pruned_half_inverse``.
+- **absorbed** (ratio >= 4, off the CUDA device): tiling, filter and
+  inverse stage 1 collapse into one weight tensor GW[k1, s, q]
+  (``_absorbed_stacked``); stage 2 is pruned and writes the interleave
+  directly.
+- **folded** (every even overlap; the only form on a CUDA device, where
+  the kernel takes G): Z = tile(X)*G, then ``_pruned_half_inverse``.
 - **classic** (odd overlap, i.e. an even tap count at ratio 1): rfft,
   periodic extension, times the spectrum, irfft, discard the overlap
   (``_upsample_frames_classic``).
@@ -271,8 +272,7 @@ class FoldedBundle:
     once per filter or EQ swap by ``fold_bundle``.
 
     ``weights`` (float32, last axis = (re, im)):
-      absorbed: GW laid out [Q2, r_m, P2, 2] (q-major, so the CUDA kernel
-        reads one q's [r_m, P2] weight slab contiguously);
+      absorbed: GW laid out [Q2, r_m, P2, 2] (the plain path only);
       folded, ratio >= 2: G = G1 + G2, [h, 2];
       folded, ratio 1: G1 and G2 stacked, [2, h, 2];
       classic (odd overlap, ``classic``): the rfft spectrum itself,
@@ -284,23 +284,36 @@ class FoldedBundle:
     classic: bool = False
 
 
+def _folded_g(spectrum, cfg: OverlapSaveConfig) -> FoldedBundle:
+    """The folded G bundle (valid at every ratio): G = G1 + G2 [h, 2], or
+    G1 and G2 stacked [2, h, 2] at ratio 1."""
+    (g1r, g1i), (g2r, g2i) = _fold_g(spectrum, cfg.fft_size)
+    if cfg.ratio == 1:
+        w = torch.stack([torch.stack([g1r, g1i], -1),
+                         torch.stack([g2r, g2i], -1)])
+    else:
+        w = torch.stack([g1r + g2r, g1i + g2i], -1)
+    return FoldedBundle(False, w.contiguous())
+
+
 def fold_bundle(spectrum, cfg: OverlapSaveConfig) -> FoldedBundle:
     """Fold an rfft filter spectrum (re, im) pair into the frame program's
     weights (the work the JAX step repeats on every dispatch,
     totton_tpu/ops/overlap_save.py:599-616). An odd overlap's classic
-    program takes the spectrum as it is."""
+    program takes the spectrum as it is.
+
+    On a CUDA device the bundle is the folded G at every ratio: the kernel
+    reads h bins, not the 32 MB GW at 16x/80k. Elsewhere it is GW where
+    the geometry has an absorbed plan (ratio >= 4), as in the JAX
+    package."""
     if cfg.overlap % 2 != 0:
         w = torch.stack([spectrum[0], spectrum[1]], -1)
         return FoldedBundle(False, w.contiguous(), classic=True)
-    (g1r, g1i), (g2r, g2i) = _fold_g(spectrum, cfg.fft_size)
-    plan = absorbed_plan(cfg)
+    plan = (None if spectrum[0].device.type == "cuda"
+            else absorbed_plan(cfg))
     if plan is None:
-        if cfg.ratio == 1:
-            w = torch.stack([torch.stack([g1r, g1i], -1),
-                             torch.stack([g2r, g2i], -1)])
-        else:
-            w = torch.stack([g1r + g2r, g1i + g2i], -1)
-        return FoldedBundle(False, w.contiguous())
+        return _folded_g(spectrum, cfg)
+    (g1r, g1i), (g2r, g2i) = _fold_g(spectrum, cfg.fft_size)
     p2, q2, r_m, t_reps = plan
     dev = g1r.device
     wt_r, wt_i, wh_r, wh_i = _fft.device_consts(
@@ -393,15 +406,17 @@ def upsample_frames(frames: torch.Tensor, bundle: FoldedBundle,
                     cfg: OverlapSaveConfig) -> torch.Tensor:
     """Plain version of the frame function:
     [..., frame_in] input-rate frames -> [..., block_size] output blocks.
-    Odd overlaps go to the classic program, as in the JAX package."""
+    The bundle's form picks the program: absorbed (GW), folded (G, valid
+    at every ratio) or, for odd overlaps, classic, as in the JAX
+    package."""
     frames = frames.to(torch.float32)
     plan = absorbed_plan(cfg)
     if (bundle.classic != (cfg.overlap % 2 != 0)
-            or bundle.absorbed != (plan is not None)):
+            or (bundle.absorbed and plan is None)):
         raise ValueError("bundle was folded for another geometry")
     if bundle.classic:
         return _upsample_frames_classic(frames, bundle, cfg)
-    if plan is not None:
+    if bundle.absorbed:
         return _absorbed_stacked(frames, bundle.weights, cfg, plan)
     m = cfg.frame_in
     h = cfg.fft_size // 2

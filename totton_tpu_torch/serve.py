@@ -63,15 +63,15 @@ import time
 import numpy as np
 import torch
 
-from totton_tpu.filters.sidecar import LoadedFilter
-from totton_tpu.io.pcm import (
+from totton_tpu_torch.filters.sidecar import LoadedFilter
+from totton_tpu_torch.io.pcm import (
     PcmFormat,
     deinterleave,
     float_to_pcm,
     interleave,
     pcm_to_float,
 )
-from totton_tpu.io.sockets import (
+from totton_tpu_torch.io.sockets import (
     FLAG_EQ_BLOCK,
     HEADER_BYTES,
     SocketSpec,
@@ -376,7 +376,7 @@ class StreamServer:
         # never pays the full static batch. The width set, floor 8
         # included, is the reference's; the floor is unmeasured on the
         # H100.
-        from totton_tpu.utils.intmath import pow2_ceil
+        from totton_tpu_torch.utils.intmath import pow2_ceil
 
         top = pow2_ceil(max_streams)
         self._slot_widths = sorted(
@@ -838,7 +838,7 @@ class StreamServer:
         # Round DOWN (stream.py _quantize_nblocks convention): a backlog
         # of 9 dispatches 8 then 1 from the same warmed shape set instead
         # of a 16-wide step that is 44% zero-pad filler.
-        from totton_tpu.utils.intmath import pow2_floor
+        from totton_tpu_torch.utils.intmath import pow2_floor
 
         k = min(pow2_floor(deepest), self.max_blocks_per_step)
         width = next(w for w in self._slot_widths if w >= len(ready))
@@ -882,7 +882,7 @@ class StreamServer:
         grouped per distinct old spectrum, one dispatch per group).
         Returns (fade_handles, served entries extended with fade info).
         """
-        from totton_tpu.utils.intmath import pow2_ceil
+        from totton_tpu_torch.utils.intmath import pow2_ceil
 
         total = self._swap_fade_frames
         groups: dict[int, list] = {}
@@ -957,7 +957,7 @@ class StreamServer:
             if self.device_pcm and out.dtype != np.int16:
                 # Fade steps stayed float on device; quantize with the
                 # bit-exact host twin so the output dtype contract holds.
-                from totton_tpu.io.pcm import quantize_s16_host
+                from totton_tpu_torch.io.pcm import quantize_s16_host
 
                 out = quantize_s16_host(out)
             # Account the blocks BEFORE put() (rolled back on Full): if
