@@ -15,8 +15,11 @@ kernel output, runs the kernel's ratio-1 branch through the CLI's EQ-only
 mode (against the same command on the CPU), the threaded session, the
 crossfeed chain (against a float64 2x2 convolution) and the live path (a
 real-time socket sender, ``--threaded``, the in-process control endpoint
-driven by a ``DaemonClient``), and prints one JSON line per kernel and a
-final status line:
+driven by a ``DaemonClient``), the sharded engine (``parallel/``: 1x1,
+1x2 and 2x1 meshes over the one card against the plain engine, two gloo
+processes on it through ``parallel.dryrun``, the CLI on a mesh, the serve
+plane on a mesh) and ``trace_context`` around one dispatch, and prints
+one JSON line per kernel and a final status line:
 
   {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": N}}
 
@@ -927,6 +930,299 @@ def live_phase(card, work, device="cuda", seconds=10.0, period=4096):
     return launches
 
 
+def _engine_run(eng, steps, swap_before, eq):
+    """(outputs, fused_frames launches) of ``eng`` over ``steps`` inputs,
+    set_eq(eq) before step ``swap_before``."""
+    from totton_tpu_torch.ops import fused_frames as ff
+
+    outs, before = [], ff.LAUNCHES
+    for i, x in enumerate(steps):
+        if i == swap_before:
+            eng.set_eq(eq)
+        outs.append(eng.process_block(x))
+    return outs, ff.LAUNCHES - before
+
+
+def host_ms_pair(fa, fb, reps: int = 9) -> tuple[list, list]:
+    """Host ms of fa() and of fb() (each returns a host array), ``reps``
+    runs each in turns a, b, b, a, ... after one warm run of each; returns
+    both lists sorted."""
+    fa(), fb()
+    ta, tb = [], []
+    for i in range(reps):
+        for f, t in ((fa, ta), (fb, tb))[::1 if i % 2 == 0 else -1]:
+            t0 = time.perf_counter()
+            f()
+            t.append((time.perf_counter() - t0) * 1e3)
+    return sorted(ta), sorted(tb)
+
+
+def ms_spread(t: list) -> str:
+    """'median [min-max]' of a sorted list of ms."""
+    return f"{t[len(t) // 2]:.3f} [{t[0]:.3f}-{t[-1]:.3f}]"
+
+
+def host_ops(f, calls: int = 5, top: int = 4) -> str:
+    """Self CPU ms per call of f() over ``calls`` calls (torch.profiler, CPU
+    activity only): all operations, then the ``top`` ones as 'name ms
+    (launches per call)'."""
+    import torch
+
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        for _ in range(calls):
+            f()
+    events = sorted(prof.key_averages(),
+                    key=lambda e: e.self_cpu_time_total, reverse=True)
+    total = sum(e.self_cpu_time_total for e in events) / 1e3 / calls
+    return f"all {total:.3f} ms: " + ", ".join(
+        f"{e.key} {e.self_cpu_time_total / 1e3 / calls:.3f} ms "
+        f"({e.count / calls:g})" for e in events[:top])
+
+
+def dryrun(args, timeout: int):
+    """python -m totton_tpu_torch.parallel.dryrun ``args``; returns (its
+    output, the fused_frames launches its ranks report); raises unless it
+    printed PASS."""
+    import re
+
+    cmd = [sys.executable, "-m", "totton_tpu_torch.parallel.dryrun",
+           "--timeout", str(timeout - 30), *args]
+    proc = subprocess.run(cmd, capture_output=True, text=True, cwd=HERE,
+                          timeout=timeout)
+    out = proc.stdout + proc.stderr
+    if proc.returncode != 0 or "PASS" not in proc.stdout:
+        raise AssertionError(f"dryrun {' '.join(args)} exited "
+                             f"{proc.returncode}: {out[-4000:]}")
+    launches = sum(int(n) for n in re.findall(r"fused_frames launches (\d+)",
+                                              out))
+    return proc.stdout, launches
+
+
+def sharded_phase(card, work, lf, device="cuda", cli_seconds=10.0,
+                  serve_seconds=(2.0, 3.5, 5.0, 7.3), stream_seconds=5.0,
+                  timed_blocks=512) -> int:
+    """The sharded engine (parallel/) on one card, sub-steps (a)-(e), each
+    on its own line; returns the sharded paths' fused_frames launches.
+    (a) a 1x1 mesh equals StreamingUpsampler bit for bit over three steps
+    with a faded set_eq between them; (b) 1x2 (time) and 2x1 (channel)
+    meshes over [device, device] at full width against StreamingUpsampler
+    (rel < 1e-5) through a faded swap, and the host ms of a sharded step
+    against a plain step of the same input; (c) two gloo ranks on the one
+    device through parallel.dryrun, engine mode and --stream; (d) the CLI
+    with --shard-time 1 --shard-channel 1 against the plain CLI (<= 1 LSB)
+    and --shard-time 2 exiting 2 on one card; (e) the serve plane on a
+    2x1 mesh, four f32 ServeClients against the offline kernel output."""
+    import numpy as np
+    import torch
+
+    from totton_tpu_torch.engine.upsampler import (
+        StreamingUpsampler,
+        upsample_signal,
+    )
+    from totton_tpu_torch.io.wav import read_wav, write_wav
+    from totton_tpu_torch.ops import fused_frames as ff
+    from totton_tpu_torch.parallel import ShardedUpsampler, make_mesh
+    from totton_tpu_torch.serve import StreamServer
+    from totton_tpu_torch.testing.signals import sine
+
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(
+        device)
+    total = 0
+
+    # (a) A 1x1 mesh is the plain block step: bit for bit.
+    sh = ShardedUpsampler(lf, make_mesh(1, 1, devices=[dev]), 2,
+                          swap_fade_frames=SERVE_FADE)
+    cfg = sh.config
+    eq = np.linspace(1.0, 0.5, cfg.n_bins)
+    pl = StreamingUpsampler(lf, 2, swap_fade_frames=SERVE_FADE, device=dev)
+    g = sh.block_input_frames
+    x = seeded_signal(3 * g / RATE + 1, 21)
+    steps = [x[:, i * g:(i + 1) * g] for i in range(3)]
+    ys, n_a = _engine_run(sh, steps, 1, eq)
+    refs, _ = _engine_run(pl, steps, 1, eq)
+    if not all(np.array_equal(a, b) for a, b in zip(ys, refs)):
+        raise AssertionError("1x1 mesh differs from StreamingUpsampler")
+    if device == "cuda" and n_a < 1:
+        raise AssertionError("the 1x1 mesh never launched fused_frames")
+    total += n_a
+    phase("sharded", f"(a) 1x1 mesh on {dev}, {cfg.ratio}x/{cfg.taps} "
+          f"stereo, 3 steps of {g} frames, a set_eq crossfaded over "
+          f"{SERVE_FADE} frames before step 1: bit-equal to "
+          f"StreamingUpsampler; fused_frames launches {n_a}")
+    del sh, pl
+
+    # (b) Two cells on one device, time and channel meshes, each fed the
+    # 1x2 mesh's granule (twice the 1x1 one).
+    g *= 2
+    for label, (nc, nt) in (("1x2 (time)", (1, 2)), ("2x1 (channel)",
+                                                     (2, 1))):
+        mesh = make_mesh(nc, nt, devices=[dev, dev])
+        sh = ShardedUpsampler(lf, mesh, 2, swap_fade_frames=SERVE_FADE)
+        pl = StreamingUpsampler(lf, 2, swap_fade_frames=SERVE_FADE,
+                                device=dev)
+        x = seeded_signal(4 * g / RATE + 1, 22)
+        steps = [x[:, i * g:(i + 1) * g] for i in range(4)]
+        ys, n_b = _engine_run(sh, steps, 3, eq)
+        refs, _ = _engine_run(pl, steps, 3, eq)
+        rel = max(rel_err(a, b) for a, b in zip(ys, refs))
+        if not rel < REL_TOL or (device == "cuda" and n_b < 1):
+            raise AssertionError(f"{label} mesh: rel {rel}, fused_frames "
+                                 f"launches {n_b}")
+        total += n_b
+        times = []
+        for n_in in (g, timed_blocks * cfg.block_in):
+            xt = seeded_signal(n_in / RATE + 1, 23)[:, :n_in]
+            sh.reset()
+            pl.reset()
+            times.append((n_in,) + host_ms_pair(
+                lambda: sh.process_block(xt), lambda: pl.process_block(xt)))
+        # Where the host time of one large step goes, sharded and plain.
+        ops = [host_ops(lambda: e.process_block(xt)) for e in (sh, pl)]
+        phase("sharded", f"(b) {label} mesh over [{dev}, {dev}], "
+              f"{cfg.ratio}x/{cfg.taps} stereo, 3 steps of {g} frames and "
+              f"a step after a set_eq crossfaded over {SERVE_FADE} frames: "
+              f"rel {rel:.3e} vs StreamingUpsampler (limit {REL_TOL:g}); "
+              f"fused_frames launches {n_b}; host ms of one step, sharded "
+              f"vs plain, median [min-max] of 9 in turns: " + "; ".join(
+                  f"{n} frames {ms_spread(a)} vs {ms_spread(b)} ms "
+                  f"({a[len(a) // 2] - b[len(b) // 2]:+.3f} ms)"
+                  for n, a, b in times)
+              + f"; host ops per {timed_blocks}-block step over 5 steps "
+              f"(torch.profiler, self CPU): sharded {ops[0]} | plain "
+              f"{ops[1]} on {card}")
+        del sh, pl
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+    # (c) Two processes on the one device over gloo.
+    path = lf.json_path
+    out, n_c = dryrun(["--device", device, "--filter", str(path)], 600)
+    ranks = [line for line in out.splitlines() if ": ok (" in line]
+    out_s, n_s = dryrun(["--stream", "--device", device, "--filter",
+                         str(path), "--seconds", str(stream_seconds)], 600)
+    if device == "cuda" and (n_c < 1 or n_s < 1):
+        raise AssertionError(f"the ranks never launched fused_frames "
+                             f"({n_c}, {n_s})")
+    total += n_c + n_s
+    phase("sharded", f"(c) parallel.dryrun, 2 gloo ranks on {dev}, "
+          f"{cfg.ratio}x/{cfg.taps}: PASS; {' | '.join(ranks)}; --stream "
+          f"{stream_seconds:g} s: {out_s.strip().splitlines()[-1]}; ranks' "
+          f"fused_frames launches {n_c} + {n_s}. NCCL across cards is not "
+          "exercised: one H100 cannot host two NCCL ranks")
+
+    # (d) The CLI on a 1x1 mesh, and a mesh one card cannot cover.
+    xs = sine(1000.0, cli_seconds, RATE, amplitude=0.5, channels=2)
+    in_path = os.path.join(work, "sh_in.wav")
+    write_wav(in_path, xs, RATE)
+    common = ["--in", in_path, "--filter", str(path), "--format", "s16",
+              "--device", device]
+    outs, n_d = {}, 0
+    for name, extra in (("plain", []), ("1x1", ["--shard-time", "1",
+                                                "--shard-channel", "1"])):
+        out_path = os.path.join(work, f"sh_{name}.wav")
+        rc, n, err = run_cli(common + ["--out", out_path] + extra,
+                             capture=True)
+        if rc != 0:
+            raise AssertionError(f"--shard {name} exited {rc}: {err[-2000:]}")
+        outs[name] = read_wav(out_path)[0]
+        if name == "1x1":
+            n_d = n
+            if "Sharded engine: mesh" not in err:
+                raise AssertionError("--shard-time 1 ran no sharded engine")
+    lsb = max_lsb(outs["1x1"], outs["plain"])
+    if not (lsb <= 1.0 and outs["1x1"].shape == (2, xs.shape[1] * cfg.ratio)):
+        raise AssertionError(f"--shard-time 1 vs plain CLI: {lsb} LSB")
+    if device == "cuda" and n_d < 1:
+        raise AssertionError("--shard-time 1 never launched fused_frames")
+    total += n_d
+    refusal = "not run (a CPU mesh covers any size)"
+    if device == "cuda":
+        rc, _, err = run_cli(common + ["--out", os.path.join(
+            work, "sh_2.wav"), "--shard-time", "2"], capture=True)
+        if rc != 2 or "does not cover" not in err:
+            raise AssertionError(f"--shard-time 2 on one card exited {rc}: "
+                                 f"{err[-1000:]}")
+        refusal = f"exit {rc}, '{err.strip().splitlines()[-1]}'"
+    phase("sharded", f"(d) totton-stream-torch --shard-time 1 "
+          f"--shard-channel 1, {cli_seconds:g} s stereo s16: max {lsb:.0f} "
+          f"LSB vs the plain CLI (limit 1); fused_frames launches {n_d}; "
+          f"--shard-time 2 on one card: {refusal}")
+
+    # (e) The serve plane's rows split over a 2x1 mesh.
+    port = free_port()
+    mesh = make_mesh(n_channel=2, n_time=1, devices=[dev, dev])
+    before = ff.LAUNCHES
+    server = StreamServer(lf, f"tcp-listen://127.0.0.1:{port}", RATE,
+                          max_streams=8, channels=2, mesh=mesh,
+                          device=device)
+    server.start()
+    sigs = [seeded_signal(s, 30 + i) for i, s in enumerate(serve_seconds)]
+    replies, wall = run_clients(port, sigs)
+    server.stop()
+    n_e = ff.LAUNCHES - before
+    if device == "cuda" and any(b.absorbed for b in server._bundle.values()):
+        raise AssertionError("the mesh server folded GW on the card")
+    rels = [rel_err(y, upsample_signal(x, lf, device=device))
+            for x, y in zip(sigs, replies)]
+    if server.failed or not max(rels) < REL_TOL or (
+            device == "cuda" and n_e < 1):
+        raise AssertionError(f"mesh serve failed={server.failed}, rel "
+                             f"{rels}, fused_frames launches {n_e}")
+    total += n_e
+    no_jax()
+    phase("sharded", f"(e) StreamServer on a 2x1 mesh over [{dev}, {dev}], "
+          f"{cfg.ratio}x/{cfg.taps}, 8 slots, {len(sigs)} f32 ServeClients "
+          f"({'/'.join(f'{s:g}' for s in serve_seconds)} s): rel vs offline "
+          f"kernel output {', '.join(f'{r:.2e}' for r in rels)} (limit "
+          f"{REL_TOL:g}); fused_frames launched {n_e} times; "
+          f"{serve_figures(server, wall)} on {card}")
+    return total
+
+
+def trace_phase(card, work, bundle, cfg, n_frames: int = 1024) -> None:
+    """(f) trace_context around one dispatch of ``n_frames`` frames: the
+    Chrome trace it writes, its size, and its fft_stage kernel events."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    from totton_tpu_torch.ops import fused_frames as ff
+    from totton_tpu_torch.utils.profiling import trace_context
+
+    frames = torch.from_numpy((np.random.default_rng(5).normal(
+        size=(n_frames, cfg.frame_in)) * 0.3).astype(np.float32)).to("cuda")
+    ff.fused_upsample_frames(frames, bundle, cfg)  # built and warm
+    trace_dir = os.path.join(work, "trace")
+    saved = ff.LAUNCHES
+    with trace_context(trace_dir):
+        ff.fused_upsample_frames(frames, bundle, cfg)
+    ff.LAUNCHES = saved
+    files = glob.glob(os.path.join(trace_dir, "trace_*.json"))
+    if len(files) != 1:
+        raise AssertionError(f"trace_context wrote {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    stages = [ev for ev in events if "fft_stage" in str(ev.get("name", ""))]
+    kernels = [ev for ev in stages if ev.get("cat") == "kernel"]
+    if not stages:
+        cats = {}
+        for ev in events:
+            cats[str(ev.get("cat"))] = cats.get(str(ev.get("cat")), 0) + 1
+        names = sorted({str(ev.get("name"))[:60] for ev in events
+                        if ev.get("cat") in ("kernel", "cuda_runtime")})
+        raise AssertionError(f"the trace holds no fft_stage event: events "
+                             f"by category {cats}; kernel and runtime "
+                             f"names {names[:20]}")
+    phase("sharded", f"(f) trace_context around one {n_frames // 2}-block "
+          f"{cfg.ratio}x/{cfg.taps} stereo dispatch: "
+          f"{os.path.basename(files[0])} {os.path.getsize(files[0])} bytes, "
+          f"{len(events)} events, {len(stages)} fft_stage events "
+          f"({len(kernels)} of category kernel, plan "
+          f"{len(ff.flops_per_launch(cfg))} launches) on {card}")
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -1151,6 +1447,14 @@ def main() -> int:
               f"{sum(by.values()) * n / total / 1e6:.0f} GB/s of scratch "
               f"and frame traffic) on {card}")
 
+    # 7b. trace_context around one 512-block dispatch (the sharded phase's
+    # sub-step f). It runs here, early: torch.profiler (torch 2.11.0+cu128
+    # on an NVIDIA H100) recorded fewer of a window's kernel activity
+    # records the longer the process had run (four, then two, then one
+    # over about a minute of the later phases, every cudaLaunchKernel
+    # still there), and none at the end of this script.
+    trace_phase(card, work, bundle, cfg)
+
     # 8. The serve plane at 16x/80k: four concurrent f32 streams on an
     # 8-slot server, a live swap to the linear-phase filter under two.
     lin = load_filter(os.path.join(FILTER_DIR,
@@ -1179,6 +1483,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     # 13. The live product path: socket input, threaded, control endpoint.
     live_launches = live_phase(card, work)
+    # 14. The sharded engine, the CLI and the serve plane on meshes over
+    # the one card, two processes on it, and trace_context.
+    torch.cuda.empty_cache()
+    sh_launches = sharded_phase(card, work, lf)
     shutil.rmtree(work, ignore_errors=True)
 
     print(json.dumps({"kernels": [{
@@ -1187,7 +1495,8 @@ def main() -> int:
         "source": "totton_tpu_torch/csrc/fused_frames.cu",
         "replaces": "totton_tpu/experimental/pallas_kernels.py:284",
         "launches": (launches + serve_launches + low_launches + r1_launches
-                     + th_launches + cf_launches + live_launches),
+                     + th_launches + cf_launches + live_launches
+                     + sh_launches),
         "launches_per_dispatch": per_dispatch,
         "max_abs_err": main_err,
         "ms": timings[512][0],

@@ -24,15 +24,18 @@ PORT = "totton_tpu_torch"
 # Definitions of the copy that may differ from the reference (the device
 # seams), and names only one side has (None on the side that lacks it).
 SEAMS = {
+    # The mesh path splits a step's rows over the mesh's devices
+    # (RowSplit, _row_split_step) where the JAX package shards one array.
     "serve.py": {
         "StreamServer.__init__", "StreamServer._fold", "StreamServer.set_eq",
         "StreamServer.load_filter", "StreamServer._apply_pending_control",
         "StreamServer._to_device", "StreamServer._drain_one",
         "StreamServer._dispatcher", "StreamServer.start",
+        "RowSplit.<fields>", "RowSplit.__init__", "RowSplit.__getitem__",
+        "_row_split_step",
     },
-    # The session without the JAX engine's sharding probes; the warm-up
-    # imports the port's fade widths.
-    "io/stream.py": {"StreamSession.__init__", "_warm_up"},
+    # The warm-up imports the port's fade widths.
+    "io/stream.py": {"_warm_up"},
     "engine/selector.py": set(),
     "engine/chain.py": set(),
     "eq/apo.py": set(),
@@ -51,15 +54,17 @@ SEAMS = {
     "io/wav.py": set(),
     "io/ring_buffer.py": set(),
     "io/sockets.py": set(),
-    "io/serve_client.py": set(),
+    # The client refuses a rate <= 0 before connecting, and an announced
+    # output rate that is not a positive multiple of its rate.
+    "io/serve_client.py": {"ServeClient.__init__"},
     # The library is built into the port's build root, never next to its
     # source, and renamed into place once complete.
     "native/__init__.py": {"_LIB_PATH", "_build"},
     "filters/sidecar.py": set(),
     "filters/hrtf.py": set(),
     "utils/intmath.py": set(),
-    # trace_context wraps jax.profiler; its torch.profiler counterpart is
-    # not ported yet.
+    # trace_context wraps torch.profiler where the reference wraps
+    # jax.profiler.
     "utils/profiling.py": {"trace_context"},
     "control/wiring.py": set(),
     "control/daemon.py": set(),
@@ -177,3 +182,11 @@ def test_copy_is_not_an_import(rel):
     for name in names:
         top = name.split(".")[0]
         assert top not in ("jax", "totton_tpu"), f"{rel} imports {name}"
+
+
+def test_the_parallel_modules_are_checked():
+    """The sharded engine's modules (no reference copy: their own code)
+    are among the sources the import check walks."""
+    sources = set(_port_sources())
+    for name in ("__init__", "mesh", "distributed", "sharded", "dryrun"):
+        assert f"{PORT}/parallel/{name}.py" in sources

@@ -1,5 +1,6 @@
 """The port's serve CLI (totton-serve-torch) on the CPU, run in-process:
-a served client, the refusals (no CUDA, --shard-serve), the RSS recycle
+a served client (also on a two-cell mesh), the refusals (no CUDA, a
+--shard-serve the slot rows do not split over), the RSS recycle
 monitor that survives a failed read, a live RELOAD through the ZMQ
 control endpoint, and exit 1 on a dispatcher that keeps failing."""
 
@@ -90,10 +91,42 @@ def test_cli_serves_a_client_and_exits_0(coefficients_dir, rng):
 
 
 def test_shard_serve_exits_2(coefficients_dir, capsys):
+    """--shard-serve exits 2 where no step width splits the slot rows
+    evenly over the mesh (the JAX server's message): every width is a
+    power of two, so 3 devices never divide them."""
     rc = serve_cli.main(_args(coefficients_dir, _free_port(),
-                              "--shard-serve", "2"))
+                              "--shard-serve", "3"))
     assert rc == 2
-    assert "not yet ported" in capsys.readouterr().err
+    assert "shards 2-channel slot rows evenly over 3 devices" in (
+        capsys.readouterr().err)
+
+
+def test_shard_serve_serves_a_client(coefficients_dir, rng, capsys):
+    """--shard-serve 2 on the CPU: the step's rows split over two CPU
+    cells, and a client's reply equals the offline upsample."""
+    port = _free_port()
+    x = (rng.normal(size=(2, 5000)) * 0.3).astype(np.float32)
+
+    def client():
+        try:
+            with _connect(port) as c:
+                return c.upsample(x)
+        finally:
+            os.kill(os.getpid(), signal.SIGINT)
+
+    t, result = _in_thread(client)
+    rc = serve_cli.main(_args(coefficients_dir, port, "--shard-serve", "2",
+                              "--duration", "120"))
+    t.join(timeout=30)
+    assert rc == 0
+    assert "error" not in result, result
+    assert "Sharded serving: slot rows over 2 devices" in (
+        capsys.readouterr().err)
+    lf = load_filter(str(next(coefficients_dir.glob("filter_44k_2x_*.json"))))
+    ref = upsample_signal(x, lf, device="cpu")
+    y = result["value"]
+    assert y.shape == ref.shape
+    assert np.abs(y - ref).max() / np.abs(ref).max() < 1e-5
 
 
 def test_device_cuda_without_cuda_exits_2(coefficients_dir, monkeypatch,

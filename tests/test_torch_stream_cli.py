@@ -1,8 +1,9 @@
 """The port's CLI (totton-stream-torch) and session, on the CPU:
 validate_audio gates, parity with the JAX CLI (file mode, ratio 1 with an
 EQ profile, --threaded, --crossfeed, --duration), the jax-free import, the
-flags of totton-stream the port carries, the transport-error exit code,
-and the refusals (no CUDA, sharding not ported yet)."""
+flags of totton-stream the port carries (the sharded engine included),
+the transport-error exit code, and the refusals (no CUDA, a mesh the
+devices do not cover)."""
 
 import json
 import os
@@ -21,7 +22,7 @@ from totton_tpu.testing.signals import sine
 from totton_tpu.testing.validate_output import validate_audio
 from totton_tpu_torch.cli import stream as torch_cli
 from totton_tpu_torch.engine.upsampler import StreamingUpsampler, upsample_signal
-from totton_tpu_torch.io.stream import StreamSession
+from totton_tpu_torch.io.stream import StreamSession, ThreadedStreamSession
 
 torch.set_num_threads(2)
 
@@ -119,6 +120,8 @@ def test_port_imports_no_jax(tmp_path):
         "import totton_tpu_torch.control.daemon, totton_tpu_torch.control.client\n"
         "import totton_tpu_torch.control.follower, totton_tpu_torch.control.wiring\n"
         "import totton_tpu_torch.io.serve_client, totton_tpu_torch.filters.hrtf\n"
+        "import totton_tpu_torch.parallel, totton_tpu_torch.parallel.dryrun\n"
+        "import totton_tpu_torch.utils.profiling\n"
         "import chip_smoke\n"
         "from totton_tpu_torch.ops import overlap_save as o, fused_frames as f\n"
         "cfg = o.OverlapSaveConfig(257, 2048, 1792, 4)\n"
@@ -135,6 +138,10 @@ def test_port_imports_no_jax(tmp_path):
         "rc = totton_tpu_torch.cli.stream.main(['--in', 'in.wav', '--out', "
         "'out.wav', '--eq-profile', 'eq.txt', '--device', 'cpu'])\n"
         "assert rc == 0 and read_wav('out.wav')[0].shape == (2, 8820)\n"
+        "rc = totton_tpu_torch.cli.stream.main(['--in', 'in.wav', '--out', "
+        "'sh.wav', '--eq-profile', 'eq.txt', '--device', 'cpu', "
+        "'--shard-time', '2'])\n"
+        "assert rc == 0 and read_wav('sh.wav')[0].shape == (2, 8820)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'totton_tpu'))\n"
         "assert not bad, bad\n"
@@ -180,14 +187,27 @@ def test_device_cuda_without_cuda_exits_2(monkeypatch, capsys):
     assert "CUDA is not available" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("flag", [
-    ["--shard-time", "2"], ["--shard-channel", "2"], ["--distributed"],
-])
-def test_flags_not_ported_exit_2(flag, capsys):
+_REFUSALS = {
+    ("--shard-time", "2"): "mesh 1x2 does not cover 1 devices",
+    ("--shard-channel", "2", "--shard-time", "1"):
+        "mesh 2x1 does not cover 1 devices",
+    ("--distributed",): "--distributed needs a sharded engine",
+}
+
+
+@pytest.mark.parametrize("flag", [list(k) for k in _REFUSALS])
+def test_flags_not_ported_exit_2(flag, monkeypatch, capsys):
+    """The sharding flags exit 2, before any endpoint opens, only where
+    the mesh cannot be built: on a one-card machine a mesh of two cells
+    does not cover its devices (the JAX package's message), and
+    --distributed needs a sharded engine."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
     rc = torch_cli.main(["--in", "a.wav", "--out", "b.wav", "--device",
-                         "cpu", *flag])
+                         "cuda", *flag])
     assert rc == 2
-    assert "not yet ported" in capsys.readouterr().err
+    assert _REFUSALS[tuple(flag)] in capsys.readouterr().err
 
 
 def test_missing_endpoints_exit_2(capsys):
@@ -421,3 +441,104 @@ def test_transport_error_exits_nonzero(tmp_path):
 
     assert run_case(rst=False) == 0
     assert run_case(rst=True) == 1
+
+
+class _ShardedEngineStub:
+    """What a session reads of a sharded engine in a process group: the
+    global granule and channel count, and this process's share of
+    each."""
+
+    block_input_frames = 4096
+    local_block_input_frames = 1024
+    channels = 8
+    local_channels = 2
+    ratio = 2
+    device_pcm = None
+
+    class config:
+        block_size = 2048
+
+
+def test_session_feeds_the_engines_local_share():
+    """A session on a sharded engine feeds this process's granule and
+    channels (local_block_input_frames, local_channels), as the
+    reference's session does; before the repair it fed the global ones."""
+    from totton_tpu_torch.io.devices import NullSink, NullSource
+
+    eng = _ShardedEngineStub()
+    for cls in (StreamSession, ThreadedStreamSession):
+        session = cls(NullSource(channels=2), NullSink(), eng,
+                      period_frames=4096)
+        assert session.block_input_frames == 1024
+        assert session.channels == 2
+        assert session.period_frames == 1024
+
+
+def test_cli_sharded_matches_jax_sharded_cli(coefficients_dir, tmp_path,
+                                             rng):
+    """--shard-time 2 (and a 2x2 mesh) on the CPU against the JAX CLI's
+    --shard-time 2 on its virtual devices and the port's plain CLI, on the
+    same WAV: within one LSB of each."""
+    fs = 44100
+    x = (rng.normal(size=(2, 9000)) * 0.2).astype(np.float32)
+    in_path = str(tmp_path / "in.wav")
+    write_wav(in_path, x, fs)
+    common = ["--in", in_path, "--filter", _filter16(coefficients_dir),
+              "--format", "s16"]
+    outs = {}
+    runs = {"time": ["--shard-time", "2"],
+            "grid": ["--shard-time", "2", "--shard-channel", "2"],
+            "plain": []}
+    for name, extra in runs.items():
+        out = str(tmp_path / f"{name}.wav")
+        assert torch_cli.main(common + ["--out", out, "--device", "cpu"]
+                              + extra) == 0
+        outs[name] = read_wav(out)[0]
+    assert jax_cli.main(common + ["--out", str(tmp_path / "j.wav"),
+                                  "--shard-time", "2"]) == 0
+    yj = read_wav(str(tmp_path / "j.wav"))[0]
+    for name, y in outs.items():
+        assert y.shape == yj.shape == (2, x.shape[1] * 16)
+        for ref in (yj, outs["plain"]):
+            assert np.abs(np.round(y * 32768)
+                          - np.round(ref * 32768)).max() <= 1, name
+
+
+def test_cli_shard_1x1_equals_plain(coefficients_dir, tmp_path, rng):
+    """--shard-time 1 --shard-channel 1 is a 1x1 mesh: the plain block
+    step on the same input, so the file equals the plain CLI's byte for
+    byte."""
+    x = (rng.normal(size=(2, 7000)) * 0.2).astype(np.float32)
+    in_path = str(tmp_path / "in.wav")
+    write_wav(in_path, x, 44100)
+    common = ["--in", in_path, "--filter", _filter16(coefficients_dir),
+              "--format", "s16", "--device", "cpu"]
+    assert torch_cli.main(common + ["--out", str(tmp_path / "s.wav"),
+                                    "--shard-time", "1",
+                                    "--shard-channel", "1"]) == 0
+    assert torch_cli.main(common + ["--out", str(tmp_path / "p.wav")]) == 0
+    assert (tmp_path / "s.wav").read_bytes() == (
+        tmp_path / "p.wav").read_bytes()
+
+
+def test_cli_sharded_crossfeed_matches_unsharded(coefficients_dir, tmp_path,
+                                                 rng):
+    """--shard-time 2 with --crossfeed (tests/test_stream_cli.py's twin):
+    the sharded engine wrapped in the chain gives the single-device
+    chain's audio."""
+    from totton_tpu_torch.filters.hrtf import generate_all
+
+    cf_path = generate_all(tmp_path, sizes=["M"], families=["44k"])[0]
+    x = (rng.normal(size=(2, 7000)) * 0.3).astype(np.float32)
+    wav_in = str(tmp_path / "in.wav")
+    write_wav(wav_in, x, 352800)
+    common = ["--in", wav_in, "--filter-dir", str(coefficients_dir),
+              "--ratio", "2", "--crossfeed", str(cf_path), "--device", "cpu"]
+    assert torch_cli.main(common + ["--out", str(tmp_path / "sharded.wav"),
+                                    "--shard-time", "2"]) == 0
+    assert torch_cli.main(common + ["--out", str(tmp_path / "plain.wav")]) == 0
+    y_sharded, r1 = read_wav(str(tmp_path / "sharded.wav"))
+    y_plain, r2 = read_wav(str(tmp_path / "plain.wav"))
+    assert r1 == r2 == 705600
+    assert y_sharded.shape == y_plain.shape == (2, 14000)
+    np.testing.assert_allclose(y_sharded, y_plain, atol=2e-5)

@@ -1,4 +1,5 @@
-"""totton-serve-torch: multi-stream upsampling server on the port (one GPU).
+"""totton-serve-torch: multi-stream upsampling server on the port (one GPU,
+or the slot rows split over a mesh of devices with --shard-serve).
 
 Serves N independent client audio streams from one batched step through
 the port's frame kernel (totton_tpu_torch/serve.py design note). Each
@@ -99,7 +100,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device: cuda (default; exits 2 without CUDA) "
                         "or cpu (the plain torch path)")
     p.add_argument("--shard-serve", type=int, default=0, metavar="N",
-                   help="not ported yet: any N > 0 exits 2")
+                   help="split the serve step's slot rows over N devices "
+                        "(row-parallel, nothing passes between devices but "
+                        "the gathered output; with --device cpu, N CPU "
+                        "cells). 0 = single device")
     p.add_argument("--recycle-rss-mb", type=int, default=0, metavar="MB",
                    help="graceful process recycling: when resident memory "
                         "exceeds MB, stop accepting, drain active streams "
@@ -123,10 +127,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
-    if args.shard_serve:
-        print("error: --shard-serve is not yet ported to totton-serve-torch",
-              file=sys.stderr)
-        return 2
 
     from totton_tpu_torch import resolve_device
 
@@ -184,6 +184,23 @@ def main(argv: list[str] | None = None) -> int:
     if eq_desc:
         print(f"EQ profile baked in: {eq_desc}", file=sys.stderr)
 
+    mesh = None
+    if args.shard_serve:
+        from totton_tpu_torch.parallel import make_mesh
+
+        try:
+            # The CPU has no card count: N CPU cells. On CUDA the mesh
+            # takes the cards there are.
+            mesh = make_mesh(
+                n_channel=args.shard_serve, n_time=1,
+                devices=([device] * args.shard_serve
+                         if device.type == "cpu" else None))
+        except ValueError as e:
+            print(f"error: --shard-serve: {e}", file=sys.stderr)
+            return 2
+        print(f"Sharded serving: slot rows over {args.shard_serve} "
+              "devices", file=sys.stderr)
+
     from totton_tpu_torch import serve as serve_mod
 
     try:
@@ -194,7 +211,7 @@ def main(argv: list[str] | None = None) -> int:
             max_blocks_per_step=args.max_blocks_per_step,
             max_input_backlog_blocks=args.max_input_backlog,
             swap_fade_frames=args.swap_fade,
-            device_pcm=args.device_pcm, device=device)
+            device_pcm=args.device_pcm, device=device, mesh=mesh)
     except (ValueError, NotImplementedError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2

@@ -3,7 +3,9 @@
 The flag surface of ``totton-stream`` for one process, running the port's
 engine on a CUDA device (or the plain torch path with ``--device cpu``):
 file, WAV, stdio and socket endpoints, the live threaded session, the
-crossfeed chain and the in-process ZeroMQ control plane:
+crossfeed chain, the in-process ZeroMQ control plane, and the sharded
+engine over a mesh of devices and processes (``--shard-time``,
+``--shard-channel``, ``--distributed``):
 
   totton-stream-torch --in song.wav --out up.wav --ratio 16 \\
       --filter-dir data/coefficients --format s16
@@ -11,9 +13,16 @@ crossfeed chain and the in-process ZeroMQ control plane:
       --ratio 16 --format s32
   totton-stream-torch --in tcp-listen://127.0.0.1:9000 --out up.wav \\
       --ratio 16 --threaded --control-endpoint ipc:///tmp/totton.sock
+  totton-stream-torch --in x.wav --out y.wav --ratio 16 --device cpu \\
+      --shard-time 2
+  torchrun --nproc-per-node 2 -m totton_tpu_torch.cli.stream --in null \\
+      --out null --rate 44100 --ratio 16 --shard-time 2 --distributed \\
+      --backend gloo --duration 2
 
-Sharding (``--shard-time``, ``--shard-channel``, ``--distributed``) is not
-ported yet; those flags exit with code 2.
+On a mesh of processes each process feeds its own channel rows and time
+span of every dispatch granule and writes its own output; process 0
+serves the control endpoint and publishes to the others, and a RELOAD or
+PHASE_TYPE_SET lands at the same engine step in every process.
 
 Exit codes: 0 ok, 1 runtime failure (including transport errors no
 reconnect answered), 2 bad arguments or no CUDA device.
@@ -29,9 +38,6 @@ import threading
 from pathlib import Path
 
 import numpy as np
-
-_NOT_PORTED = ("shard_time", "shard_channel", "distributed")
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -109,30 +115,46 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--control-endpoint", metavar="ENDPOINT",
                    help="serve the ZMQ control protocol from inside the "
                         "streamer (RELOAD/SOFT_RESET/PHASE_TYPE_* act on "
-                        "the live engine; e.g. ipc:///tmp/totton_zmq.sock)")
+                        "the live engine; e.g. ipc:///tmp/totton_zmq.sock). "
+                        "In a process group only process 0 serves it")
     p.add_argument("--control-pub-endpoint", metavar="ENDPOINT",
                    help="control-event PUB endpoint: the control endpoint "
-                        "publishes every state-changing command here")
+                        "publishes every state-changing command here. In a "
+                        "process group process 0 binds it and the others "
+                        "subscribe and replay each command on their engine "
+                        "cells (pass the same tcp:// value to every process)")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default; exits 2 without CUDA) "
                         "or cpu (the plain torch path)")
-    # Not ported yet: accepted so the refusal is explicit.
-    p.add_argument("--shard-time", type=int, default=0, help=argparse.SUPPRESS)
-    p.add_argument("--shard-channel", type=int, default=0,
-                   help=argparse.SUPPRESS)
+    p.add_argument("--shard-time", type=int, default=0, metavar="N",
+                   help="shard time spans across N devices of the mesh "
+                        "(0 = single device; with --device cpu the mesh is "
+                        "N x --shard-channel CPU cells)")
+    p.add_argument("--shard-channel", type=int, default=1, metavar="N",
+                   help="shard channels across N devices (with --shard-time)")
     p.add_argument("--distributed", action="store_true",
-                   help=argparse.SUPPRESS)
+                   help="join a torch.distributed process group (address "
+                        "from --coordinator or MASTER_ADDR/MASTER_PORT, as "
+                        "torchrun sets them) before building the mesh; this "
+                        "process then feeds its own channel rows / time "
+                        "span and drains its own output (requires --rate; "
+                        "--channels is the GLOBAL channel count)")
+    p.add_argument("--coordinator", metavar="HOST:PORT",
+                   help="process-group address (default "
+                        "$MASTER_ADDR:$MASTER_PORT)")
+    p.add_argument("--num-processes", type=int,
+                   help="total processes (default $WORLD_SIZE)")
+    p.add_argument("--process-id", type=int,
+                   help="this process's rank (default $RANK)")
+    p.add_argument("--backend", choices=["nccl", "gloo"],
+                   help="torch.distributed backend (default nccl with "
+                        "--device cuda, gloo with --device cpu); processes "
+                        "that share one card need gloo")
     return p
 
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
-    for name in _NOT_PORTED:
-        if getattr(args, name):
-            flag = "--" + name.replace("_", "-")
-            print(f"error: {flag} is not yet ported to totton-stream-torch",
-                  file=sys.stderr)
-            return 2
 
     import torch
 
@@ -181,8 +203,51 @@ def main(argv: list[str] | None = None) -> int:
             print(f"error: {e}", file=sys.stderr)
             return 2
 
+    # Process group + mesh come BEFORE the endpoints: on a mesh of
+    # processes this process opens a source/sink for only its own channel
+    # rows and time span (parallel/sharded.py ingest contract).
+    mesh = None
+    n_procs = 1
+    process_index = 0
+    local_channels = args.channels
+    if args.distributed:
+        from totton_tpu_torch.parallel import initialize_distributed
+
+        try:
+            initialize_distributed(
+                args.coordinator, args.num_processes, args.process_id,
+                backend=args.backend or (
+                    "nccl" if device.type == "cuda" else "gloo"))
+        except (RuntimeError, ValueError) as e:
+            print(f"error: --distributed: {e}", file=sys.stderr)
+            return 2
+    if args.shard_time:
+        from totton_tpu_torch.parallel import ShardedUpsampler, make_mesh
+        from totton_tpu_torch.parallel.mesh import _world
+
+        process_index, n_procs = _world()
+        devices = None
+        if device.type == "cpu":
+            # The CPU has no card count: this process's share of the
+            # mesh's cells, all on the CPU.
+            cells = args.shard_channel * args.shard_time
+            devices = [device] * -(-cells // n_procs)
+        try:
+            mesh = make_mesh(n_channel=args.shard_channel,
+                             n_time=args.shard_time, devices=devices)
+            if n_procs > 1:
+                local_channels = ShardedUpsampler.local_channel_count(
+                    mesh, args.channels)
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+    elif args.distributed:
+        print("error: --distributed needs a sharded engine "
+              "(--shard-time N [--shard-channel M])", file=sys.stderr)
+        return 2
+
     try:
-        source = open_source(in_spec, fmt, args.channels, args.rate,
+        source = open_source(in_spec, fmt, local_channels, args.rate,
                              socket_reconnect_s=args.socket_reconnect)
     except (OSError, ValueError) as e:
         print(f"error: cannot open input {in_spec}: {e}", file=sys.stderr)
@@ -238,26 +303,52 @@ def main(argv: list[str] | None = None) -> int:
         print(f"EQ profile baked in: {eq_desc}", file=sys.stderr)
 
     # On-device s16 quantization; the crossfeed chain keeps the float path
-    # (its post stage lives outside the upsampler).
-    pcm_eligible = fmt is PcmFormat.S16_LE and not args.crossfeed
+    # (its post stage lives outside the upsampler), and sharded meshes are
+    # undithered by design (parallel/sharded.py note), so --dither keeps
+    # them on the float path.
+    pcm_eligible = (fmt is PcmFormat.S16_LE and not args.crossfeed
+                    and (mesh is None or not args.dither))
     if args.device_pcm == "on" and not pcm_eligible:
-        print("error: --device-pcm on requires --format s16 and no "
-              "--crossfeed", file=sys.stderr)
+        print("error: --device-pcm on requires --format s16, no "
+              "--crossfeed, and no --dither on a sharded mesh",
+              file=sys.stderr)
         return 2
     device_pcm_on = args.device_pcm != "off" and pcm_eligible
 
-    try:
-        engine = StreamingUpsampler(
-            loaded, channels=source.channels, eq_response=eq_response,
-            swap_fade_frames=args.swap_fade,
-            device_pcm=PcmFormat.S16_LE if device_pcm_on else None,
-            pcm_dither=args.dither and device_pcm_on, device=device)
-    except NotImplementedError as e:
-        print(f"error: {e}", file=sys.stderr)
-        return 2
-    if device_pcm_on:
-        print("Device PCM: s16 quantization on-device"
-              + (" (TPDF dither)" if args.dither else ""), file=sys.stderr)
+    if mesh is not None:
+        # In a process group --channels is the GLOBAL count and the source
+        # carries this process's rows; in one process the source decides
+        # (a WAV header may have refined it).
+        global_channels = args.channels if n_procs > 1 else source.channels
+        try:
+            engine = ShardedUpsampler(
+                loaded, mesh, channels=global_channels,
+                eq_response=eq_response, swap_fade_frames=args.swap_fade,
+                device_pcm=PcmFormat.S16_LE if device_pcm_on else None)
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        if device_pcm_on:
+            print("Device PCM: s16 quantization on-device (sharded drain)",
+                  file=sys.stderr)
+        print(f"Sharded engine: mesh {mesh.shape}, "
+              f"process {process_index}/{n_procs}, dispatch granule "
+              f"{engine.local_block_input_frames} local input frames "
+              f"({engine.local_channels} local channels)", file=sys.stderr)
+    else:
+        try:
+            engine = StreamingUpsampler(
+                loaded, channels=source.channels, eq_response=eq_response,
+                swap_fade_frames=args.swap_fade,
+                device_pcm=PcmFormat.S16_LE if device_pcm_on else None,
+                pcm_dither=args.dither and device_pcm_on, device=device)
+        except NotImplementedError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        if device_pcm_on:
+            print("Device PCM: s16 quantization on-device"
+                  + (" (TPDF dither)" if args.dither else ""),
+                  file=sys.stderr)
     if args.crossfeed:
         from totton_tpu_torch.engine.chain import CrossfeedChain
         from totton_tpu_torch.engine.crossfeed import (
@@ -304,12 +395,14 @@ def main(argv: list[str] | None = None) -> int:
     old_handlers = {s: signal.signal(s, handle_signal)
                     for s in (signal.SIGINT, signal.SIGTERM)}
 
-    # In-process control plane (leader role: one process): RELOAD,
-    # PHASE_TYPE_SET and SOFT_RESET act on the live engine.
+    # In-process control plane: RELOAD, PHASE_TYPE_SET and SOFT_RESET act
+    # on the live engine. In a process group process 0 serves the
+    # endpoint and publishes; the others follow its PUB endpoint.
     daemon = None
-    if args.control_endpoint:
-        from totton_tpu_torch.control.daemon import ControlDaemon
-
+    follower = None
+    is_leader = process_index == 0
+    if (args.control_endpoint and is_leader) or (
+            args.control_pub_endpoint and not is_leader):
         # Filter/EQ swaps act on the inner upsampler (the chain's post
         # stage is filter-agnostic), but SOFT_RESET clears the OUTERMOST
         # engine: with --crossfeed the chain carries its own pending/FIFO
@@ -319,7 +412,8 @@ def main(argv: list[str] | None = None) -> int:
         current_phase = {"value": phase}
         startup_phase = phase
 
-        def reload_filter(phase: str) -> dict:
+        def reload_filter(phase: str,
+                          apply_at_step: int | None = None) -> dict:
             # A pinned --filter stays pinned across RELOADs (the reload
             # then re-reads EQ/config); directory lookup serves auto
             # lookup or a phase change.
@@ -338,6 +432,17 @@ def main(argv: list[str] | None = None) -> int:
                 # stream: reload the filter clean and report.
                 print(f"Live reload: EQ skipped ({e})", file=sys.stderr)
                 eq, desc = None, None
+            # A mesh of processes swaps STEP-SYNCHRONIZED: the leader's
+            # engine stamps apply_at_step (published with the control
+            # event) and the followers schedule the same boundary, so the
+            # swap lands at the same output sample in every process.
+            if n_procs > 1 and hasattr(upsampler, "schedule_swap"):
+                at = upsampler.schedule_swap(
+                    load_filter(path), eq_response=eq,
+                    apply_at_step=apply_at_step)
+                print(f"Live reload scheduled at step {at}: {path}"
+                      + (f" + EQ {desc}" if desc else ""), file=sys.stderr)
+                return {"apply_at_step": at}
             upsampler.load_filter(load_filter(path), eq_response=eq)
             print(f"Live reload: {path}" + (f" + EQ {desc}" if desc else ""),
                   file=sys.stderr)
@@ -363,38 +468,59 @@ def main(argv: list[str] | None = None) -> int:
                         print("Live dither: "
                               + ("on" if settings.alsa.dither else "off"),
                               file=sys.stderr)
-            return reload_filter(current_phase["value"])
+            return reload_filter(current_phase["value"], apply_at_step)
 
         def on_phase_change(phase: str,
                             apply_at_step: int | None = None) -> dict:
             # Reload first: if the swap fails, the error reaches the daemon
             # (INTERNAL reply) and neither the phase nor config.json moves.
-            extra = reload_filter(phase)
+            extra = reload_filter(phase, apply_at_step)
             current_phase["value"] = phase
-            persist_phase(phase, args.config_path, True)
+            persist_phase(phase, args.config_path, is_leader)
             return extra
 
-        daemon = ControlDaemon(
-            endpoint=args.control_endpoint,
-            pub_endpoint=args.control_pub_endpoint,
-            on_reload=on_reload,
-            on_soft_reset=engine.reset,
-            on_phase_change=on_phase_change,
-            stats_path=args.stats_path,
-            phase_type=current_phase["value"],
-        )
-        daemon.start()
-        print(f"Control endpoint: {args.control_endpoint}"
-              + (f" (publishing on {args.control_pub_endpoint})"
-                 if args.control_pub_endpoint else ""), file=sys.stderr)
-        threading.Thread(
-            target=lambda: (daemon.wait_for_shutdown(), session.stop()),
-            daemon=True, name="totton-shutdown-watch",
-        ).start()
+        if is_leader:
+            from totton_tpu_torch.control.daemon import ControlDaemon
+
+            daemon = ControlDaemon(
+                endpoint=args.control_endpoint,
+                pub_endpoint=args.control_pub_endpoint,
+                on_reload=on_reload,
+                on_soft_reset=engine.reset,
+                on_phase_change=on_phase_change,
+                stats_path=args.stats_path,
+                phase_type=current_phase["value"],
+            )
+            daemon.start()
+            print(f"Control endpoint: {args.control_endpoint}"
+                  + (f" (publishing on {args.control_pub_endpoint})"
+                     if args.control_pub_endpoint else ""), file=sys.stderr)
+            threading.Thread(
+                target=lambda: (daemon.wait_for_shutdown(), session.stop()),
+                daemon=True, name="totton-shutdown-watch",
+            ).start()
+        else:
+            # The other processes replay the leader's published commands
+            # on their own engine cells: a swap applied in one process
+            # only would diverge the filter across the mesh.
+            from totton_tpu_torch.control.follower import ControlFollower
+
+            follower = ControlFollower(
+                args.control_pub_endpoint,
+                on_reload=on_reload,
+                on_soft_reset=engine.reset,
+                on_phase_change=on_phase_change,
+                on_shutdown=session.stop,
+            )
+            follower.start()
+            print(f"Control follower of {args.control_pub_endpoint}",
+                  file=sys.stderr)
 
     max_frames = int(args.duration * input_rate) if args.duration else None
     dev_name = (torch.cuda.get_device_name(device) if device.type == "cuda"
                 else str(device))
+    if mesh is not None:
+        dev_name += f", mesh {mesh.shape}"
     print("Streaming started "
           f"({input_rate} Hz -> {input_rate * engine.ratio} Hz, "
           f"{source.channels}ch, ratio {engine.ratio}, device {dev_name})",
@@ -404,14 +530,24 @@ def main(argv: list[str] | None = None) -> int:
     finally:
         if daemon is not None:
             daemon.stop()
+        if follower is not None:
+            follower.stop()
         source.close()
         sink.close()
         for s, h in old_handlers.items():
             signal.signal(s, h)
+        if args.distributed:
+            import torch.distributed as dist
+
+            if dist.is_initialized():
+                dist.destroy_process_group()
+    from totton_tpu_torch.ops import fused_frames
+
     print("Streaming stopped", file=sys.stderr)
     print(f"frames_in={stats.frames_in} frames_out={stats.frames_out} "
           f"blocks={stats.blocks_processed} "
-          f"realtime_factor={stats.realtime_factor:.1f}x", file=sys.stderr)
+          f"realtime_factor={stats.realtime_factor:.1f}x "
+          f"fused_frames_launches={fused_frames.LAUNCHES}", file=sys.stderr)
     if stats.transport_errors:
         # A mid-stream RST is not a clean stop: report it and exit nonzero
         # so supervisors restart the pipeline. A stream whose every fault

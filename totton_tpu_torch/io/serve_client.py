@@ -76,6 +76,8 @@ class ServeClient:
             raise ValueError(
                 f"{server!r} is a listen spec; the client connects "
                 "(tcp://host:port or unix:/path)")
+        if rate <= 0:
+            raise ValueError(f"rate must be a positive sample rate: {rate}")
         self.channels = channels
         self.rate = rate
         self.fmt = fmt
@@ -100,6 +102,11 @@ class ServeClient:
             raise OSError(
                 f"server answered fmt={rfmt} channels={rch}, "
                 f"requested fmt={fmt} channels={channels}")
+        if rrate <= 0 or rrate % rate:
+            self.sock.close()
+            raise OSError(
+                f"server announced output rate {rrate}, not a positive "
+                f"multiple of the requested rate {rate}")
         #: the upsampled output rate the server announced (rate * ratio)
         self.output_rate = rrate
         self.ratio = rrate // rate

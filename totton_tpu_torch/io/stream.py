@@ -350,10 +350,14 @@ class StreamSession:
         self.source = source
         self.sink = sink
         self.engine = engine
-        block_in = engine.block_input_frames
+        # Multi-process sharded engines expose per-process granules: this
+        # process feeds only its local channel rows / time span.
+        block_in = (getattr(engine, "local_block_input_frames", None)
+                    or engine.block_input_frames)
         self.block_input_frames = block_in
         self.period_frames = max(1, min(period_frames, block_in))
-        self.channels = engine.channels
+        self.channels = (getattr(engine, "local_channels", None)
+                         or engine.channels)
         low_latency = _is_low_latency(source)
         if max_batch_blocks is None:
             max_batch_blocks = _auto_batch_blocks(source,

@@ -261,16 +261,19 @@ def _launch_cuda(frames: torch.Tensor, bundle: FoldedBundle,
                             device=dev)
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.totton_fused_frames(
-        frames.data_ptr(), out.data_ptr(),
-        0 if scratch_b is None else scratch_b.data_ptr(),
-        scratch_x.data_ptr(), scratch_c.data_ptr(), g.data_ptr(),
-        consts["tw_fwd"].data_ptr(),
-        consts["tw_m"].data_ptr() if "tw_m" in consts else 0,
-        consts["tw_p2"].data_ptr(), consts["tw_q2"].data_ptr(),
-        consts["tw_h"].data_ptr(), n,
-        pl["m"], pl["P"], pl["Q"], pl["P2"], pl["Q2"], pl["block"],
-        pl["j0"], int(pl["fused"]), int(pl["halves"]), stream)
+    # The launch goes to the frames' card: a kernel launched on another
+    # card's stream fails (a mesh's cells span cards).
+    with torch.cuda.device(dev):
+        rc = lib.totton_fused_frames(
+            frames.data_ptr(), out.data_ptr(),
+            0 if scratch_b is None else scratch_b.data_ptr(),
+            scratch_x.data_ptr(), scratch_c.data_ptr(), g.data_ptr(),
+            consts["tw_fwd"].data_ptr(),
+            consts["tw_m"].data_ptr() if "tw_m" in consts else 0,
+            consts["tw_p2"].data_ptr(), consts["tw_q2"].data_ptr(),
+            consts["tw_h"].data_ptr(), n,
+            pl["m"], pl["P"], pl["Q"], pl["P2"], pl["Q2"], pl["block"],
+            pl["j0"], int(pl["fused"]), int(pl["halves"]), stream)
     if rc != 0:
         msg = lib.totton_cuda_error_string(rc).decode()
         raise RuntimeError(f"fused_frames launch failed: {msg} ({rc})")

@@ -333,6 +333,21 @@ def fold_bundle(spectrum, cfg: OverlapSaveConfig) -> FoldedBundle:
     return FoldedBundle(True, gw.contiguous())
 
 
+def fold_bundles(taps: np.ndarray, cfg: OverlapSaveConfig,
+                 eq_response: np.ndarray | None,
+                 devices: list[torch.device]) -> dict:
+    """{device: FoldedBundle} for every distinct device in ``devices``:
+    one host spectrum of ``taps`` (+ EQ), folded once on each device (a
+    mesh's cells, or a row split's groups)."""
+    spectrum = filter_spectrum(taps, cfg.fft_size, eq_response)
+    bundles = {}
+    for dev in devices:
+        if dev not in bundles:
+            bundles[dev] = fold_bundle(tuple(s.to(dev) for s in spectrum),
+                                       cfg)
+    return bundles
+
+
 def _pruned_half_inverse(zr, zi, h: int, j0: int):
     """Unnormalized inverse complex DFT of length h computing only the
     output tail j >= (j0 // P2) * P2 for a two-stage h (whole stage-2

@@ -90,10 +90,11 @@ from totton_tpu_torch.ops.overlap_save import (
     OverlapSaveConfig,
     filter_spectrum,
     fold_bundle,
+    fold_bundles,
     make_block_step,
 )
 
-log = logging.getLogger("totton.serve")
+log =logging.getLogger("totton.serve")
 
 #: cap on a client's per-stream EQ block (an APO profile is ~100 bytes
 #: per band; this admits hundreds of bands while bounding a hostile
@@ -327,6 +328,32 @@ class ServeStats:
             }
 
 
+class RowSplit:
+    """A serve step's input on a mesh: its rows split evenly over the
+    mesh's devices, one part per device in mesh order. Indexing slices
+    every part the same way (the fade prefix takes leading columns)."""
+
+    def __init__(self, parts: list[torch.Tensor]) -> None:
+        self.parts = parts
+
+    def __getitem__(self, index) -> "RowSplit":
+        return RowSplit([part[index] for part in self.parts])
+
+
+def _row_split_step(step, devices: list[torch.device]):
+    """The block step over a RowSplit: each device steps its own rows with
+    its own bundle ({device: FoldedBundle}), and the outputs are gathered
+    back in row order on the first device. The serve plane drops the new
+    tail (its tails are host-managed), so None stands in for it."""
+
+    def split_step(tails: RowSplit, x: RowSplit, bundles):
+        ys = [step(t, part, bundles[dev])[0]
+              for t, part, dev in zip(tails.parts, x.parts, devices)]
+        return torch.cat([y.to(devices[0]) for y in ys]), None
+
+    return split_step
+
+
 class StreamServer:
     """Accepts duplex PCM connections and serves them from one batched
     engine step (module docstring for the design)."""
@@ -346,10 +373,24 @@ class StreamServer:
         swap_fade_frames: int = 0,
         device_pcm: bool = False,
         device: str | torch.device = "cuda",
+        mesh=None,
     ) -> None:
-        # "cuda" without CUDA raises here: the server never falls back
-        # to the CPU on its own.
-        self.device = resolve_device(device)
+        # Serving on a mesh (parallel.make_mesh): the step's slot rows
+        # split evenly over the mesh's devices, each device steps its own
+        # rows and the rows are gathered back in order. Tails are
+        # host-managed, so nothing passes between devices but the
+        # gathered output. A one-cell mesh is the one-device path on that
+        # cell's device.
+        self.mesh = mesh
+        self._devices = None
+        if mesh is None:
+            # "cuda" without CUDA raises here: the server never falls
+            # back to the CPU on its own.
+            self.device = resolve_device(device)
+        else:
+            self.device = mesh.devices()[0]
+            if mesh.size > 1:
+                self._devices = mesh.devices()
         self.config = OverlapSaveConfig.from_sidecar(filt.sidecar)
         if self.device.type == "cuda" and self.config.overlap % 2 == 0:
             kernel_plan(self.config)  # raises on what the kernel cannot run
@@ -370,6 +411,8 @@ class StreamServer:
                 f"serve endpoint must be a listen spec, got {endpoint!r}")
         self._bundle = self._fold(filt, eq_response)
         self._step = make_block_step(self.config)
+        if self._devices is not None:
+            self._step = _row_split_step(self._step, self._devices)
         # Adaptive row width: each step dispatches the smallest
         # power-of-two slot width covering the READY slots (served slots
         # are compacted into leading rows), so a lightly-loaded server
@@ -382,6 +425,16 @@ class StreamServer:
         self._slot_widths = sorted(
             {w for w in (8, 16, 32, 64, 128, 256, 512, 1024)
              if w < top and w >= min(8, top)} | {top})
+        if self._devices is not None:
+            n_dev = len(self._devices)
+            widths = [w for w in self._slot_widths
+                      if (w * channels) % n_dev == 0]
+            if not widths:
+                raise ValueError(
+                    f"no serve step width in {self._slot_widths} shards "
+                    f"{channels}-channel slot rows evenly over {n_dev} "
+                    "devices; raise --max-streams or shrink the mesh")
+            self._slot_widths = widths
         if max_input_backlog_blocks < max_blocks_per_step:
             raise ValueError(
                 "max_input_backlog_blocks must be >= max_blocks_per_step "
@@ -726,12 +779,16 @@ class StreamServer:
     def _fold(self, filt: LoadedFilter,
               eq_response: np.ndarray | None):
         """The served FoldedBundle for ``filt`` (+ EQ), on the server's
-        device. Runs on the calling thread, once per swap; device work
-        there and on the dispatcher shares the default CUDA stream, so
-        the bundle is complete before any step reads it."""
-        spectrum = filter_spectrum(filt.taps, self.config.fft_size,
-                                   eq_response, device=self.device)
-        return fold_bundle(spectrum, self.config)
+        device; on a mesh, {device: FoldedBundle} for each distinct device
+        of the mesh. Runs on the calling thread, once per swap; device
+        work there and on the dispatcher shares the default CUDA stream,
+        so the bundle is complete before any step reads it."""
+        if self._devices is None:
+            spectrum = filter_spectrum(filt.taps, self.config.fft_size,
+                                       eq_response, device=self.device)
+            return fold_bundle(spectrum, self.config)
+        return fold_bundles(filt.taps, self.config, eq_response,
+                            self._devices)
 
     def set_eq(self, eq_response: np.ndarray | None) -> None:
         """Hot-swap the EQ baked into the served spectrum (all streams).
@@ -864,10 +921,16 @@ class StreamServer:
             return None
         return x, tails, served
 
-    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+    def _to_device(self, arr: np.ndarray):
         """Host -> device transfer of a step input (pinned and
-        non-blocking on CUDA)."""
-        return upload(arr, self.device)
+        non-blocking on CUDA); on a mesh, its rows split evenly over the
+        mesh's devices (dim 0 sharded, dim 1 whole)."""
+        if self._devices is None:
+            return upload(arr, self.device)
+        return RowSplit([upload(np.ascontiguousarray(part), dev)
+                         for part, dev in zip(
+                             np.split(arr, len(self._devices)),
+                             self._devices)])
 
     def _dispatch_fades(self, tj, xj, served) -> tuple[dict, list]:
         """Old-spectrum prefix dispatches for fading served slots

@@ -1,15 +1,15 @@
-"""Per-block timing: a copy of ``totton_tpu/utils/profiling.py`` with
-``BlockTimer`` only.
+"""Per-block timing and device tracing: a copy of
+``totton_tpu/utils/profiling.py``.
 
 ``BlockTimer`` is a cheap wall-clock accumulator with percentile summaries
-that wraps each device dispatch in the stream sessions. The reference's
-``trace_context`` wraps ``jax.profiler.trace``; its torch counterpart
-(``torch.profiler``) is not ported yet, so it is left out here.
+that wraps each device dispatch in the stream sessions. ``trace_context``
+wraps ``torch.profiler`` where the reference wraps ``jax.profiler.trace``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 
 import numpy as np
@@ -50,3 +50,32 @@ class BlockTimer:
             "p99_ms": float(np.percentile(t, 99)),
             "max_ms": float(np.max(t)),
         }
+
+
+@contextlib.contextmanager
+def trace_context(trace_dir: str | None = None):
+    """torch.profiler wrapper; no-op when no directory is configured.
+
+    Enable via argument or the TOTTON_TRACE_DIR environment variable. It
+    records CPU activity, plus CUDA activity (kernel launches and their
+    device time) where CUDA is present, and writes one Chrome trace
+    (``trace_<pid>_<ns>.json``) into the directory; open it in Perfetto
+    or chrome://tracing.
+    """
+    trace_dir = trace_dir or os.environ.get("TOTTON_TRACE_DIR")
+    if not trace_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    os.makedirs(trace_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(
+        trace_dir, f"trace_{os.getpid()}_{time.monotonic_ns()}.json"))
