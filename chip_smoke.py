@@ -18,8 +18,14 @@ real-time socket sender, ``--threaded``, the in-process control endpoint
 driven by a ``DaemonClient``), the sharded engine (``parallel/``: 1x1,
 1x2 and 2x1 meshes over the one card against the plain engine, two gloo
 processes on it through ``parallel.dryrun``, the CLI on a mesh, the serve
-plane on a mesh) and ``trace_context`` around one dispatch, and prints
-one JSON line per kernel and a final status line:
+plane on a mesh) and ``trace_context`` around one dispatch. The web
+plane (``totton-web-torch`` in its own process, with an OPRA fixture
+database) steers the live stream over HTTP beside the ``DaemonClient``;
+one of the low-latency serve streams goes through ``totton-serve-client-
+torch``. The time-domain EQ cascade's kernel (``csrc/biquad_cascade.cu``,
+built in parallel with the frame kernel) is checked against its plain
+version and a float64 ``sosfilt``, streamed in chunks and timed. It
+prints one JSON line with both kernels and a final status line:
 
   {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": N}}
 
@@ -65,6 +71,46 @@ LAUNCH_NAMES = {"SpecStore": "F", "FwdStage1Store": "F1",
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_S = 3.35e12
 L2_FLUSH_BYTES = 128 * 2**20  # more than the 50 MB L2
+KERNELS = ("fused_frames", "biquad_cascade")
+# The time-domain EQ cascade (phase iir): a 10-band APO profile of PK, LS
+# and HS bands at 44.1 kHz, stereo; kernel vs plain at one 4096-sample
+# chunk, the float64 oracle on 60 s of noise.
+IIR_PROFILE = """Preamp: -6 dB
+Filter 1: ON PK Fc 31 Hz Gain 2.5 dB Q 1.2
+Filter 2: ON LS Fc 105 Hz Gain 4 dB Q 0.7
+Filter 3: ON PK Fc 220 Hz Gain -1.5 dB Q 1.4
+Filter 4: ON PK Fc 500 Hz Gain 1 dB Q 2.0
+Filter 5: ON PK Fc 1000 Hz Gain 3 dB Q 1.0
+Filter 6: ON PK Fc 2200 Hz Gain -2 dB Q 3.0
+Filter 7: ON PK Fc 4000 Hz Gain 2 dB Q 2.5
+Filter 8: ON PK Fc 6500 Hz Gain -3 dB Q 4.0
+Filter 9: ON HS Fc 8000 Hz Gain -2 dB Q 0.7
+Filter 10: ON PK Fc 12000 Hz Gain 1.5 dB Q 1.0
+"""
+IIR_CHUNK = 4096
+IIR_SECONDS = 60.0
+# The float64 oracle's tolerance: the reference suite's
+# (tests/test_eq.py::TestTimeDomainCascade, assert_allclose).
+IIR_ORACLE_RTOL, IIR_ORACLE_ATOL = 1e-3, 2e-4
+# Dependent-issue latency of an FP32 FMA, FMUL or FADD on NVIDIA's SMs
+# since Volta (microbenchmarks: Jia et al., "Dissecting the NVIDIA Volta
+# GPU Architecture via Microbenchmarking", 2018), in SM cycles.
+FP32_LATENCY_CYCLES = 4
+# An OPRA database for the web plane (shaped like tests/test_opra.py's
+# fixture): nothing is downloaded.
+OPRA_FIXTURE = "\n".join(json.dumps(e) for e in [
+    {"type": "vendor", "id": "v1", "data": {"name": "Sennheiser"}},
+    {"type": "product", "id": "p1", "data": {
+        "name": "HD650", "vendor_id": "v1", "type": "headphone"}},
+    {"type": "eq", "id": "e1", "data": {
+        "product_id": "p1", "author": "oratory1990", "name": "HD650 EQ",
+        "parameters": {"gain_db": -6.4, "bands": [
+            {"type": "peak_dip", "frequency": 200, "gain_db": -2.0,
+             "q": 0.6},
+            {"type": "low_shelf", "frequency": 105, "gain_db": 4.0,
+             "q": 0.7},
+            {"type": "high_pass", "frequency": 20, "slope": 12}]}}},
+])
 
 
 def phase(name: str, msg: str) -> None:
@@ -142,6 +188,35 @@ def card_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
+def card_max_sm_mhz() -> float:
+    """The card's highest SM clock (MHz), as nvidia-smi reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout
+    return float(out.strip().splitlines()[0])
+
+
+def build_kernels() -> dict[str, float]:
+    """Every kernel of the port built from this checkout's sources, one
+    nvcc each, all started together; then loaded. Returns each build's
+    seconds."""
+    import concurrent.futures
+
+    from totton_tpu_torch.ops import _build
+
+    def timed(name):
+        t0 = time.monotonic()
+        _build.build(name)
+        return time.monotonic() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+        seconds = dict(zip(KERNELS, pool.map(timed, KERNELS)))
+    for name in KERNELS:
+        _build.load(name)
+    return seconds
+
+
 @functools.lru_cache(maxsize=1)
 def _flush_buffer():
     import torch
@@ -197,12 +272,14 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_clients(port, signals, fmt=None, split=None, swap=None):
+def run_clients(port, signals, fmt=None, split=None, swap=None, cli=None):
     """Stream each [2, n] signal through its own ServeClient, all connected
     at once, each sent in 1 s bursts from a pump thread while its reply is
     read. A stream i in ``split`` (i -> input frames) holds after that many
     frames until ``swap()`` has run; swap() runs once every held stream has
-    read its first part's output and every other stream has finished.
+    read its first part's output and every other stream has finished. A
+    stream i in ``cli`` (i -> work directory; s16 only) goes through
+    totton-serve-client-torch's main instead, WAV in and WAV out.
     Returns (outputs, wall seconds from connect to the last reply byte)."""
     import threading
 
@@ -211,12 +288,19 @@ def run_clients(port, signals, fmt=None, split=None, swap=None):
     from totton_tpu_torch.io.serve_client import ServeClient
 
     split = split or {}
+    cli = cli or {}
     outs = [None] * len(signals)
     errors = []
     gate = threading.Event()
     first = {i: threading.Event() for i in split}
 
     def stream(i, x):
+        if i in cli:
+            try:
+                outs[i] = serve_client_cli(port, x, cli[i], i)
+            except Exception as e:  # raised in the caller
+                errors.append((i, e))
+            return
         try:
             with ServeClient(f"tcp://127.0.0.1:{port}", x.shape[0], RATE,
                              fmt=fmt) as c:
@@ -265,6 +349,25 @@ def run_clients(port, signals, fmt=None, split=None, swap=None):
     if errors or any(t.is_alive() for t in threads):
         raise AssertionError(f"serve clients failed: {errors}")
     return outs, wall
+
+
+def serve_client_cli(port, x, work, i):
+    """[2, n] float32 through ``totton-serve-client-torch`` (its main, in
+    this thread): x written as an s16 WAV, streamed with the s16 wire
+    format, the reply written as an s16 WAV and read back."""
+    from totton_tpu_torch.cli import serve_client
+    from totton_tpu_torch.io.pcm import PcmFormat
+    from totton_tpu_torch.io.wav import read_wav, write_wav
+
+    src = os.path.join(work, f"client_{i}_in.wav")
+    dst = os.path.join(work, f"client_{i}_out.wav")
+    write_wav(src, x, RATE, PcmFormat.S16_LE)
+    rc = serve_client.main(["--server", f"tcp://127.0.0.1:{port}", "--in",
+                            src, "--out", dst, "--format", "s16",
+                            "--wire-format", "s16", "--timeout", "300"])
+    if rc != 0:
+        raise AssertionError(f"totton-serve-client-torch exited {rc}")
+    return read_wav(dst)[0]
 
 
 def serve_figures(server, wall: float) -> str:
@@ -423,9 +526,11 @@ def serve_phase(card, lf, lin, device, seconds=(2.0, 3.5, 5.0, 7.3),
     return launches, server
 
 
-def serve_low_phase(card, low, device, n_streams=12, seconds=2.0) -> int:
+def serve_low_phase(card, low, device, work, n_streams=12,
+                    seconds=2.0) -> int:
     """Serve ``n_streams`` s16 streams at once on a 16-slot device-PCM
-    StreamServer (both the 8- and the 16-slot widths run). Gates: every
+    StreamServer (both the 8- and the 16-slot widths run), the last
+    through totton-serve-client-torch (WAV in, WAV out). Gates: every
     reply within one LSB of float_to_pcm(offline upsample_signal);
     fused_frames launched; the server did not fail; no jax. Returns the
     launches."""
@@ -457,30 +562,34 @@ def serve_low_phase(card, low, device, n_streams=12, seconds=2.0) -> int:
     server.start()
     warm_s = time.monotonic() - t0
     sigs = [seeded_signal(seconds, 10 + i) for i in range(n_streams)]
-    outs, wall = run_clients(port, sigs, fmt=s16)
+    via_cli = n_streams - 1
+    outs, wall = run_clients(port, sigs, fmt=s16, cli={via_cli: work})
     server.stop()
     launches = ff.LAUNCHES
     figures = serve_figures(server, wall)
     if server.failed or (device == "cuda" and launches < 1):
         raise AssertionError(f"serve-low failed={server.failed}, "
                              f"fused_frames launches {launches}")
-    lsb = 0.0
+    lsbs = []
     for x, y in zip(sigs, outs):
         ref = s16_roundtrip(upsample_signal(s16_roundtrip(x), low,
                                             device=device))
         if y.shape != ref.shape:
             raise AssertionError(f"reply shape {y.shape} != {ref.shape}")
-        lsb = max(lsb, float(np.abs(y - ref).max()) * 32768)
+        lsbs.append(float(np.abs(y - ref).max()) * 32768)
+    lsb = max(lsbs)
     if not lsb <= 1.0:
-        raise AssertionError(f"serve-low off by {lsb} LSB")
+        raise AssertionError(f"serve-low off by {lsbs} LSB")
     if not any(key.startswith("16x") for key in server.stats.steps_by_shape):
         raise AssertionError("the 16-slot width never ran")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     phase("serve-low", f"{low.sidecar.taps} taps {server.config.ratio}x, "
           f"16 slots, device PCM, {n_streams} s16 streams of {seconds:g} "
-          f"s: max {lsb:.0f} LSB vs float_to_pcm(offline kernel output) "
-          f"(limit 1); fused_frames launches {launches}; start "
+          f"s (stream {via_cli} through totton-serve-client-torch, WAV in "
+          f"and out: {lsbs[via_cli]:.0f} LSB): max {lsb:.0f} LSB vs "
+          f"float_to_pcm(offline kernel output) (limit 1); fused_frames "
+          f"launches {launches}; start "
           f"{warm_s:.2f} s; {figures} on {card}")
     return launches
 
@@ -780,13 +889,68 @@ def crossfeed_phase(card, work, lf, device="cuda", seconds=(3.0, 10.0),
     return launches + n_cli
 
 
-def live_phase(card, work, device="cuda", seconds=10.0, period=4096):
+def start_web(work, endpoint, cfg_path, stats_path):
+    """``python -m totton_tpu_torch.cli.webserver`` on a free port, its
+    environment pointed at the live stream's control endpoint, config and
+    stats, an EQ directory and OPRA_FIXTURE; returns (process, base URL)
+    once /api/status answers."""
+    import urllib.request
+
+    db = os.path.join(work, "opra_database_v1.jsonl")
+    with open(db, "w") as f:
+        f.write(OPRA_FIXTURE + "\n")
+    env = dict(os.environ, TOTTON_ZMQ_ENDPOINT=endpoint,
+               TOTTON_CONFIG_PATH=cfg_path, TOTTON_STATS_PATH=stats_path,
+               TOTTON_EQ_DIR=os.path.join(work, "EQ"),
+               OPRA_DATABASE_PATH=db,
+               TOTTON_DATA_DIR=os.path.join(work, "data"))
+    port = free_port()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "totton_tpu_torch.cli.webserver", "--host",
+         "127.0.0.1", "--port", str(port)], cwd=HERE, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    url = f"http://127.0.0.1:{port}"
+    deadline = time.monotonic() + 60
+    while True:
+        try:
+            with urllib.request.urlopen(url + "/api/status", timeout=2):
+                return proc, url
+        except OSError:
+            if proc.poll() is not None or time.monotonic() > deadline:
+                proc.kill()
+                out = proc.communicate()[0]
+                raise AssertionError(f"totton-web-torch never answered: "
+                                     f"{out[-2000:]}")
+            time.sleep(0.1)
+
+
+def http(url, method="GET", body=None) -> tuple[int, dict]:
+    """(status, JSON reply) of one request to the web plane."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, method=method, headers={
+        "Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=30) as r:
+            return r.status, json.load(r)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def live_phase(card, work, device="cuda", seconds=7.0, period=4096,
+               pause=0.5):
     """The live product path: totton-stream-torch on a tcp-listen socket
     input, --threaded, with the in-process control endpoint, driven by a
-    real-time sender thread and a DaemonClient thread (PING,
-    PHASE_TYPE_SET linear, RELOAD with an EQ and alsa.dither turned on in
-    config.json, SOFT_RESET, STATS), each reply timed. The CLI runs on this
-    (the main) thread for its signal handlers. Returns the launches."""
+    real-time sender thread and a controller thread, each reply timed and
+    ``pause`` s apart. The controller speaks to the stream's endpoint
+    directly (DaemonClient: PING, RELOAD with alsa.dither turned on in
+    config.json, SOFT_RESET, STATS) and through the web plane,
+    ``totton-web-torch`` in its own process (GET /api/status, PUT
+    /api/daemon/phase-type linear, an EQ imported and activated, an OPRA
+    preset applied). The CLI runs on this (the main) thread for its
+    signal handlers. Returns the launches."""
     import socket
     import threading
 
@@ -802,14 +966,15 @@ def live_phase(card, work, device="cuda", seconds=10.0, period=4096):
     port = free_port()
     endpoint = f"ipc://{work}/c.sock"
     cfg_path = os.path.join(work, "config.json")
-    profile = write_profile(work, "live_eq.txt")
     with open(cfg_path, "w") as f:
         json.dump({"eqEnabled": False}, f)
     out_path = os.path.join(work, "live.wav")
     stats_path = os.path.join(work, "live_stats.json")
+    web, url = start_web(work, endpoint, cfg_path, stats_path)
     x = sine(440.0, seconds, RATE, amplitude=0.5, channels=2)
     replies, errors = [], []
-    sent = {"frames": 0}
+    sent = {"frames": 0, "end": None}
+    reloads_sent = 3  # RELOAD, the EQ activation, the OPRA apply
 
     def sender():
         try:
@@ -834,6 +999,7 @@ def live_phase(card, work, device="cuda", seconds=10.0, period=4096):
                     ahead = t0 + sent["frames"] / RATE - time.monotonic()
                     if ahead > 0:
                         time.sleep(ahead)
+                sent["end"] = time.monotonic()
         except Exception as e:  # raised on the main thread
             errors.append(("sender", e))
 
@@ -852,25 +1018,43 @@ def live_phase(card, work, device="cuda", seconds=10.0, period=4096):
             def timed(name, fn, check):
                 t0 = time.perf_counter()
                 r = fn()
-                replies.append((name, (time.perf_counter() - t0) * 1e3))
+                replies.append((name, (time.perf_counter() - t0) * 1e3,
+                                time.monotonic()))
                 if not check(r):
-                    raise AssertionError(f"{name} reply {r.raw}")
-                time.sleep(1.0)
+                    raise AssertionError(f"{name} reply "
+                                         f"{getattr(r, 'raw', r)}")
+                time.sleep(pause)
                 return r
 
+            def ok_http(status, body, key=None):
+                return status == 200 and (key is None or body.get(key))
+
             timed("PING", client.ping, bool)
-            timed("PHASE_TYPE_SET linear",
-                  lambda: client.set_phase_type("linear"), lambda r: r.ok)
+            timed("HTTP GET /api/status", lambda: http(url + "/api/status"),
+                  lambda r: ok_http(*r, "daemon_running"))
+            timed("HTTP PUT /api/daemon/phase-type linear",
+                  lambda: http(url + "/api/daemon/phase-type", "PUT",
+                               {"phase_type": "linear"}),
+                  lambda r: ok_http(*r) and r[1]["phase_type"] == "linear")
             with open(cfg_path) as f:
                 conf = json.load(f)
-            conf.update({"eqEnabled": True, "eqProfilePath": profile,
-                         "alsa": {"dither": True}})
+            conf["alsa"] = {"dither": True}
             with open(cfg_path, "w") as f:
                 json.dump(conf, f)
             timed("RELOAD", client.reload_config, lambda r: r.ok)
+            timed("HTTP POST /api/eq/import-text",
+                  lambda: http(url + "/api/eq/import-text", "POST",
+                               {"name": "live_eq", "content": EQ_PROFILE}),
+                  lambda r: ok_http(*r, "imported"))
+            timed("HTTP POST /api/eq/activate/live_eq",
+                  lambda: http(url + "/api/eq/activate/live_eq", "POST"),
+                  lambda r: ok_http(*r, "reloaded"))
+            timed("HTTP POST /opra/apply/e1",
+                  lambda: http(url + "/opra/apply/e1", "POST"),
+                  lambda r: ok_http(*r, "reloaded"))
             timed("SOFT_RESET", client.soft_reset, lambda r: r.ok)
             timed("STATS", client.stats,
-                  lambda r: r.ok and r.data["reloads"] >= 1)
+                  lambda r: r.ok and r.data["reloads"] >= reloads_sent)
         except Exception as e:  # raised on the main thread
             errors.append(("control", e))
 
@@ -881,19 +1065,24 @@ def live_phase(card, work, device="cuda", seconds=10.0, period=4096):
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    rc, launches, err = run_cli(
-        ["--in", f"tcp-listen://127.0.0.1:{port}", "--out", out_path,
-         "--ratio", "16", "--filter-dir", FILTER_DIR, "--format", "s16",
-         "--threaded", "--control-endpoint", endpoint, "--config", cfg_path,
-         "--stats-path", stats_path, "--device", device], capture=True)
-    wall = time.monotonic() - t0
-    for t in threads:
-        t.join(timeout=120)
+    try:
+        rc, launches, err = run_cli(
+            ["--in", f"tcp-listen://127.0.0.1:{port}", "--out", out_path,
+             "--ratio", "16", "--filter-dir", FILTER_DIR, "--format", "s16",
+             "--threaded", "--control-endpoint", endpoint, "--config",
+             cfg_path, "--stats-path", stats_path, "--device", device],
+            capture=True)
+        wall = time.monotonic() - t0
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        web.terminate()
+        web_out = web.communicate(timeout=30)[0]
     peak = (torch.cuda.max_memory_allocated() / 2**20 if device == "cuda"
             else float("nan"))
     if errors or any(t.is_alive() for t in threads):
         raise AssertionError(f"live phase threads failed: {errors}; "
-                             f"stderr {err[-2000:]}")
+                             f"stderr {err[-2000:]}; web {web_out[-2000:]}")
     with open(stats_path) as f:
         stats = json.load(f)
     y, rate = read_wav(out_path)
@@ -906,9 +1095,13 @@ def live_phase(card, work, device="cuda", seconds=10.0, period=4096):
             and y.shape == (2, 16 * x.shape[1]) and rate == 16 * RATE),
         "no xruns": stats["xruns"] == {"input_overflows": 0,
                                        "output_overflows": 0},
-        "live reloads": (err.count("Live reload:") >= 2
-                         and "Live dither: on" in err and "+ EQ" in err
+        # The phase change and every RELOAD log a reload.
+        "live reloads": (err.count("Live reload:") >= 1 + reloads_sent
+                         and "Live dither: on" in err
+                         and "live_eq.txt" in err and "opra_e1.txt" in err
                          and "linear_phase" in err),
+        "last reply inside the stream": (
+            sent["end"] is not None and replies[-1][2] < sent["end"]),
         "launches cover the blocks": blocks > 0 and (
             device != "cuda" or launches * 8 >= blocks),
         "finite": bool(np.isfinite(y).all()),
@@ -922,8 +1115,11 @@ def live_phase(card, work, device="cuda", seconds=10.0, period=4096):
     no_jax()
     phase("live", f"tcp-listen socket, {seconds:g} s stereo s16 at the live "
           f"44.1 kHz pace in {period}-frame periods -> 16x/80k, --threaded, "
-          f"control endpoint: replies ms "
-          f"{{{', '.join(f'{k}: {v:.2f}' for k, v in replies)}}}; blocks "
+          f"control endpoint (DaemonClient) and totton-web-torch (HTTP), "
+          f"{pause:g} s apart: replies ms "
+          f"{{{', '.join(f'{k}: {v:.2f}' for k, v, _ in replies)}}}; last "
+          f"reply {sent['end'] - replies[-1][2]:.2f} s before the input "
+          f"ended; STATS reloads >= {reloads_sent}; blocks "
           f"{blocks}, fused_frames launches {launches}; realtime factor "
           f"{stats['realtime_factor']:.1f}x; xruns {stats['xruns']}; wall "
           f"{wall:.2f} s; device peak memory {peak:.0f} MiB on {card}")
@@ -1180,47 +1376,238 @@ def sharded_phase(card, work, lf, device="cuda", cli_seconds=10.0,
     return total
 
 
-def trace_phase(card, work, bundle, cfg, n_frames: int = 1024) -> None:
-    """(f) trace_context around one dispatch of ``n_frames`` frames: the
-    Chrome trace it writes, its size, and its fft_stage kernel events."""
+def trace_records(path: str) -> tuple[int, int, float]:
+    """(launches, kernel records, the least launch-to-kernel-start offset
+    in us) of a Chrome trace: a negative offset is the device clock's
+    drift behind the host's."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    launch = {ev["args"]["correlation"]: ev["ts"] for ev in events
+              if "LaunchKernel" in str(ev.get("name", ""))
+              and "correlation" in ev.get("args", {})}
+    kernels = [ev for ev in events if ev.get("cat") == "kernel"]
+    offsets = [ev["ts"] - launch[ev["args"]["correlation"]] for ev in kernels
+               if ev.get("args", {}).get("correlation") in launch]
+    return len(launch), len(kernels), min(offsets, default=float("nan"))
+
+
+def trace_window(work, fn, use_trace_context: bool, i: int) -> str:
+    """One CUDA profiler window around fn(): trace_context's, or a bare
+    torch.profiler window; returns the Chrome trace's path."""
     import glob
 
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from totton_tpu_torch.utils.profiling import trace_context
+
+    if use_trace_context:
+        trace_dir = os.path.join(work, f"trace_{i}")
+        with trace_context(trace_dir):
+            fn()
+        files = glob.glob(os.path.join(trace_dir, "trace_*.json"))
+        if len(files) != 1:
+            raise AssertionError(f"trace_context wrote {files}")
+        return files[0]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    path = os.path.join(work, f"bare_window_{i}.json")
+    prof.export_chrome_trace(path)
+    return path
+
+
+def trace_phase(card, work, bundle, cfg, late: bool = False,
+                n_frames: int = 1024, bare_windows: int = 3) -> None:
+    """trace_context around one dispatch of ``n_frames`` frames. Early in
+    the process, (f): the trace keeps the stage plan's fft_stage kernel
+    records. At its end, (g): it keeps them or is marked for their loss
+    (``profiling.check_kernel_records``), and ``bare_windows`` bare
+    torch.profiler windows around the same dispatch show how many keep
+    theirs and the least launch-to-kernel offset (the device timestamps'
+    shift against the host's)."""
     import numpy as np
     import torch
 
     from totton_tpu_torch.ops import fused_frames as ff
-    from totton_tpu_torch.utils.profiling import trace_context
+    from totton_tpu_torch.utils.profiling import NO_KERNEL_SUFFIX
 
     frames = torch.from_numpy((np.random.default_rng(5).normal(
         size=(n_frames, cfg.frame_in)) * 0.3).astype(np.float32)).to("cuda")
-    ff.fused_upsample_frames(frames, bundle, cfg)  # built and warm
-    trace_dir = os.path.join(work, "trace")
-    saved = ff.LAUNCHES
-    with trace_context(trace_dir):
+
+    def dispatch():
         ff.fused_upsample_frames(frames, bundle, cfg)
+
+    dispatch()  # built and warm
+    torch.cuda.synchronize()
+    saved = ff.LAUNCHES
+    path = trace_window(work, dispatch, True, int(late))
+    probes = [trace_records(trace_window(work, dispatch, False, i))
+              for i in range(bare_windows if late else 0)]
     ff.LAUNCHES = saved
-    files = glob.glob(os.path.join(trace_dir, "trace_*.json"))
-    if len(files) != 1:
-        raise AssertionError(f"trace_context wrote {files}")
-    with open(files[0]) as f:
-        events = json.load(f)["traceEvents"]
-    stages = [ev for ev in events if "fft_stage" in str(ev.get("name", ""))]
-    kernels = [ev for ev in stages if ev.get("cat") == "kernel"]
-    if not stages:
-        cats = {}
-        for ev in events:
-            cats[str(ev.get("cat"))] = cats.get(str(ev.get("cat")), 0) + 1
-        names = sorted({str(ev.get("name"))[:60] for ev in events
-                        if ev.get("cat") in ("kernel", "cuda_runtime")})
-        raise AssertionError(f"the trace holds no fft_stage event: events "
-                             f"by category {cats}; kernel and runtime "
-                             f"names {names[:20]}")
-    phase("sharded", f"(f) trace_context around one {n_frames // 2}-block "
-          f"{cfg.ratio}x/{cfg.taps} stereo dispatch: "
-          f"{os.path.basename(files[0])} {os.path.getsize(files[0])} bytes, "
-          f"{len(events)} events, {len(stages)} fft_stage events "
-          f"({len(kernels)} of category kernel, plan "
-          f"{len(ff.flops_per_launch(cfg))} launches) on {card}")
+    with open(path) as f:
+        trace = json.load(f)
+    events = trace["traceEvents"]
+    stages = [ev for ev in events if "fft_stage" in str(ev.get("name", ""))
+              and ev.get("cat") == "kernel"]
+    plan = len(ff.flops_per_launch(cfg))
+    launches, records, offset = trace_records(path)
+    marked = NO_KERNEL_SUFFIX in os.path.basename(path)
+    kept = len(stages) == plan
+    if not (kept or (late and records == 0 and marked
+                     and "tottonKernelRecords" in trace)):
+        raise AssertionError(f"{path}: {len(stages)} fft_stage kernel "
+                             f"records, the plan has {plan}; {launches} "
+                             f"launches, {records} kernel records, marked "
+                             f"{marked}")
+    where = ("at the end of the process" if late
+             else "early in the process")
+    phase("sharded", f"({'g' if late else 'f'}) trace_context around one "
+          f"{n_frames // 2}-block {cfg.ratio}x/{cfg.taps} stereo dispatch "
+          f"{where}: {os.path.basename(path)} {os.path.getsize(path)} "
+          f"bytes, {len(events)} events, {launches} launches, "
+          f"{len(stages)} fft_stage kernel records (plan {plan} launches)"
+          f"{', marked: no kernel record' if marked else ''}, least "
+          f"launch-to-kernel offset {offset:.1f} us"
+          + (f"; {len(probes)} bare torch.profiler windows: " + "; ".join(
+              f"{n} launches, {k} kernel records, offset {o:.1f} us"
+              for n, k, o in probes) if probes else "") + f" on {card}")
+
+
+def iir_chain_ops(samples: int, bands: int) -> int:
+    """Dependent FP32 operations on the cascade's longest chain, per
+    channel. Each band's recursion runs y(t) -> a1 * y (FMUL) ->
+    fma(b1, v, -a1 * y) (FMA) -> + s2 (FADD) = s1(t) -> y(t + 1) =
+    fma(b0, v, s1) (FMA): four dependent operations a sample, whatever
+    the schedule. Band i's y(t) also waits for band i - 1's y(t) (one FMA),
+    so the bands pipeline one operation apart: 4T + S in all. (The
+    kernel's own order, every band of a sample before the next sample,
+    chains about T x S FMAs.)"""
+    return 4 * samples + bands
+
+
+def iir_phase(card, device="cuda", seconds=IIR_SECONDS, chunk=IIR_CHUNK):
+    """The time-domain EQ cascade (eq/iir.py, csrc/biquad_cascade.cu) on
+    IIR_PROFILE, stereo at 44.1 kHz: (a) kernel vs plain at one ``chunk``
+    with a carried state (rel, limit REL_TOL; the state too), the plain
+    version timed there once; (b) ``biquad_cascade`` on ``seconds`` of
+    noise against a float64 ``sosfilt`` (the reference suite's
+    tolerance); (c) ``BiquadCascade`` fed ``chunk``-frame chunks equals
+    (b) bit for bit; (d) the kernel timed with CUDA events at the chunk
+    and on the whole signal (ms per second of audio); (e) its bound.
+    Returns the kernels-line entry; its launches are (b) and (c)'s."""
+    import numpy as np
+    import torch
+    from scipy import signal as ssig
+
+    from totton_tpu_torch.eq import iir
+    from totton_tpu_torch.eq.apo import parse_eq_string
+
+    profile = parse_eq_string(IIR_PROFILE)
+    coeffs, preamp = iir.profile_to_coeff_matrix(profile, RATE)
+    bands = coeffs.shape[0]
+    dev = torch.device(device)
+    c = torch.from_numpy(coeffs).to(dev)
+    rng = np.random.default_rng(40)
+    saved = iir.LAUNCHES
+
+    # (a) Kernel vs plain on the same chunk and state.
+    xc = torch.from_numpy((rng.normal(size=(2, chunk)) * 0.3).astype(
+        np.float32)).to(dev)
+    s0 = torch.from_numpy((rng.normal(size=(2, bands, 2)) * 0.01).astype(
+        np.float32)).to(dev)
+    y, st = iir.cascade(xc, c, s0, preamp)
+    if device == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        ref, ref_st = iir.cascade_plain(xc, c, s0, preamp)
+        end.record()
+        end.synchronize()
+        p_ms = start.elapsed_time(end)
+    else:
+        ref, ref_st = iir.cascade_plain(xc, c, s0, preamp)
+        p_ms = float("nan")
+    err = (y - ref).abs().max().item()
+    rel = err / ref.abs().max().item()
+    st_rel = ((st - ref_st).abs().max() / ref_st.abs().max()).item()
+    if not (rel <= REL_TOL and st_rel <= REL_TOL
+            and torch.isfinite(y).all().item()):
+        raise AssertionError(f"biquad_cascade vs plain: rel {rel:.3e}, "
+                             f"state rel {st_rel:.3e}")
+
+    # (b), (c): the user's entry points, launches counted.
+    x = (rng.normal(size=(2, int(seconds * RATE))) * 0.3).astype(np.float32)
+    iir.LAUNCHES = 0
+    one_shot = iir.biquad_cascade(x, profile, RATE, device=device)
+    casc = iir.BiquadCascade(profile, RATE, 2, device=device)
+    streamed = np.concatenate([casc.process(x[:, i:i + chunk])
+                               for i in range(0, x.shape[1], chunk)], 1)
+    launches = iir.LAUNCHES
+    sos = np.concatenate([coeffs[:, :3], np.ones((bands, 1), np.float32),
+                          coeffs[:, 3:]], 1).astype(np.float64)
+    oracle = ssig.sosfilt(sos, x.astype(np.float64) * preamp, axis=-1)
+    o_rel = float(np.abs(one_shot - oracle).max() / np.abs(oracle).max())
+    o_ok = np.allclose(one_shot, oracle, rtol=IIR_ORACLE_RTOL,
+                       atol=IIR_ORACLE_ATOL)
+    s_lsb = float(np.abs(streamed - one_shot).max())
+    if not (o_ok and s_lsb == 0.0 and np.isfinite(one_shot).all()):
+        raise AssertionError(f"biquad_cascade: oracle rel {o_rel:.3e} "
+                             f"(allclose {o_ok}); streamed vs one-shot "
+                             f"max |diff| {s_lsb}")
+    if device == "cuda" and launches < 1:
+        raise AssertionError("the cascade never launched biquad_cascade")
+
+    # (d) Kernel times (launches not counted), (e) the bound.
+    k_ms = k_all_ms = mhz = float("nan")
+    if device == "cuda":
+        xt = torch.from_numpy(x).to(dev)
+        z = torch.zeros((2, bands, 2), dtype=torch.float32, device=dev)
+        k_ms = cuda_time_ms(lambda: iir.cascade(xc, c, s0, preamp))
+        k_all_ms = cuda_time_ms(lambda: iir.cascade(xt, c, z, preamp),
+                                warmup=1, reps=3)
+        mhz = card_max_sm_mhz()
+        del xt
+    iir.LAUNCHES = saved + launches
+    chain = iir_chain_ops(chunk, bands)
+    bound = {"latency": chain * FP32_LATENCY_CYCLES / (mhz * 1e6) * 1e3,
+             "bytes": (2 * 2 * chunk * 4 + 2 * 2 * bands * 2 * 4
+                       + bands * 5 * 4) / PEAK_BYTES_S * 1e3,
+             "operations": 2 * chunk * (9 * bands + 1) / PEAK_FP32_FLOPS
+             * 1e3}
+    bound_by = max(bound, key=bound.get)
+    no_jax()
+    phase("iir", f"{bands}-band APO cascade (PK/LS/HS), stereo 44.1 kHz: "
+          f"(a) kernel vs plain at {chunk} samples, carried state: rel "
+          f"{rel:.3e}, state rel {st_rel:.3e} (limit {REL_TOL:g}); (b) "
+          f"{seconds:g} s of noise vs float64 sosfilt: max|diff|/max|ref| "
+          f"{o_rel:.3e} (allclose rtol {IIR_ORACLE_RTOL:g} atol "
+          f"{IIR_ORACLE_ATOL:g}: {o_ok}); (c) {chunk}-frame chunks vs "
+          f"one-shot max |diff| {s_lsb:g}; biquad_cascade launches "
+          f"{launches}; (d) kernel {k_ms:.4f} ms per {chunk}-sample chunk, "
+          f"{k_all_ms:.3f} ms for {seconds:g} s ({k_all_ms / seconds:.4f} "
+          f"ms per second of audio), plain {p_ms:.1f} ms per chunk (one "
+          f"run); (e) bound at {chunk} samples {bound[bound_by]:.4f} ms "
+          f"({bound_by}: {chain} dependent FP32 operations x "
+          f"{FP32_LATENCY_CYCLES} cycles at {mhz:g} MHz; bytes "
+          f"{bound['bytes']:.6f}, operations {bound['operations']:.6f}); "
+          f"kernel at {bound[bound_by] / k_ms:.1%} of it on {card}")
+    return {
+        "name": "biquad_cascade",
+        "route": "cuda",
+        "source": "totton_tpu_torch/csrc/biquad_cascade.cu",
+        "replaces": "totton_tpu/eq/iir.py:43",
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": k_ms,
+        "plain_ms": p_ms,
+        "bound_ms": bound[bound_by],
+        "bound_by": bound_by,
+        "library_ms": None,
+        "shape": f"2 x {chunk} samples, {bands} bands",
+        "ms_per_audio_second": k_all_ms / seconds,
+    }
 
 
 def main() -> int:
@@ -1251,10 +1638,11 @@ def main() -> int:
         raise AssertionError("TF32 must be off on the signal path")
     dev = torch.device("cuda")
 
-    # 2. Build the kernel from the checkout's sources.
+    # 2. Build the kernels from the checkout's sources, in parallel.
     t0 = time.monotonic()
-    _build.load("fused_frames")
-    phase("build", f"fused_frames built and loaded in "
+    builds = build_kernels()
+    phase("build", f"{', '.join(f'{k} {v:.2f} s' for k, v in builds.items())}"
+          f" (nvcc in parallel); built and loaded in "
           f"{time.monotonic() - t0:.2f} s")
 
     def engine_state(name):
@@ -1448,11 +1836,8 @@ def main() -> int:
               f"and frame traffic) on {card}")
 
     # 7b. trace_context around one 512-block dispatch (the sharded phase's
-    # sub-step f). It runs here, early: torch.profiler (torch 2.11.0+cu128
-    # on an NVIDIA H100) recorded fewer of a window's kernel activity
-    # records the longer the process had run (four, then two, then one
-    # over about a minute of the later phases, every cudaLaunchKernel
-    # still there), and none at the end of this script.
+    # sub-step f), early: late in the process torch.profiler drops the
+    # device records of some windows (sub-step g).
     trace_phase(card, work, bundle, cfg)
 
     # 8. The serve plane at 16x/80k: four concurrent f32 streams on an
@@ -1471,11 +1856,13 @@ def main() -> int:
     # s16 streams on 16 slots (so the 8- and 16-slot widths both run).
     low = load_filter(os.path.join(FILTER_DIR,
                                    "filter_44k_16x_8000_min_phase.json"))
-    low_launches = serve_low_phase(card, low, "cuda")
+    low_launches = serve_low_phase(card, low, "cuda", work)
     torch.cuda.empty_cache()
 
-    # 10. Ratio 1 (the kernel's halves branch) through the CLI, EQ only.
+    # 10. Ratio 1 (the kernel's halves branch) through the CLI, EQ only,
+    # and the time-domain EQ cascade on its own kernel.
     r1_launches = ratio1_phase(card, work)
+    iir_entry = iir_phase(card)
     # 11. The threaded session in file mode, 16x/80k.
     th_launches = threaded_phase(card, work)
     # 12. The crossfeed chain, engine level and CLI, 16x/80k.
@@ -1487,6 +1874,9 @@ def main() -> int:
     # the one card, two processes on it, and trace_context.
     torch.cuda.empty_cache()
     sh_launches = sharded_phase(card, work, lf)
+    # 15. trace_context at the end of the process: its kernel records, or
+    # the trace marked for their loss (sub-step g).
+    trace_phase(card, work, bundle, cfg, late=True)
     shutil.rmtree(work, ignore_errors=True)
 
     print(json.dumps({"kernels": [{
@@ -1504,7 +1894,7 @@ def main() -> int:
         "bound_ms": bound[bound_by],
         "bound_by": bound_by,
         "library_ms": timings[512][2],
-    }]}))
+    }, iir_entry]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -174,3 +174,20 @@ def test_ratio1_engine_matches_jax(rng, taps):
         yt = teng.process_block(x)
         assert yt.shape == yj.shape == x.shape
         assert _rel(yt, yj) < 1e-5, f"chunk {i}"
+
+
+@pytest.mark.parametrize("key", ["44k_2x", "44k_16x"])
+def test_from_file_matches_the_reference(coefficients_dir, rng, key):
+    """StreamingUpsampler.from_file (the reference's classmethod, with the
+    port's explicit device) loads the sidecar and streams as the JAX
+    engine's from_file does."""
+    path = str(next(coefficients_dir.glob(f"filter_{key}_*.json")))
+    eq = rng.uniform(0.5, 1.0, size=StreamingUpsampler.from_file(
+        path, device="cpu").config.n_bins)
+    teng = StreamingUpsampler.from_file(path, 2, eq, device="cpu")
+    jeng = JaxUpsampler.from_file(path, 2, eq)
+    assert teng.device == torch.device("cpu")
+    assert teng.ratio == jeng.ratio and teng.config.taps == jeng.config.taps
+    x = (rng.normal(size=(2, 3 * teng.block_input_frames)) * 0.3).astype(
+        np.float32)
+    assert _rel(teng.process_block(x), jeng.process_block(x)) < 1e-5

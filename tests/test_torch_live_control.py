@@ -13,7 +13,7 @@ import time
 import pytest
 
 from totton_tpu.control.client import DaemonClient
-from totton_tpu.filters.generate import generate_one
+from totton_tpu_torch.filters.generate import generate_one
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -42,7 +42,7 @@ def _mesh(n_channel=None, n_time=None, k=8):
 
 @pytest.fixture(scope="module")
 def filter_path(tmp_path_factory):
-    from totton_tpu.filters.generate import generate_one
+    from totton_tpu_torch.filters.generate import generate_one
 
     out = tmp_path_factory.mktemp("torch_par_coeff")
     # fft_size 4096 >> taps gives block_in 774 with halo_in 250, a healthy

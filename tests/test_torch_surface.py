@@ -1,0 +1,194 @@
+"""The port's surface against the JAX package's, read by AST (never by
+import, so neither package loads here).
+
+(a) Every public top-level name of every module under ``totton_tpu/``
+exists in the module at the same relative path under
+``totton_tpu_torch/``, every public method of every public class exists
+in the port's class, and every parameter of a public function or method
+exists in the port's, except the TPU-only names of ``TPU_ONLY``. A
+package ``__init__``'s public names are its imports and ``__all__``; the
+port's may also name them in a ``_LAZY`` table (imported on first
+attribute access by a module ``__getattr__``).
+
+(b) Every ``.py`` module under ``totton_tpu/`` has its counterpart file
+under ``totton_tpu_torch/``; ``COUNTERPARTS`` holds the two exceptions.
+"""
+
+import ast
+import os
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+REF = os.path.join(REPO, "totton_tpu")
+PORT = os.path.join(REPO, "totton_tpu_torch")
+
+#: Reference modules whose counterpart sits elsewhere in the port.
+COUNTERPARTS = {
+    # The Pallas frame kernel: a CUDA kernel and its wrapper.
+    "experimental/pallas_kernels.py": ["ops/fused_frames.py",
+                                       "csrc/fused_frames.cu"],
+    # Only re-exports the Pallas module; nothing of it is a port surface.
+    "experimental/__init__.py": [],
+}
+
+#: Names (``module:name``, ``module:Class.method`` or
+#: ``module:function(param)``) that exist only on the TPU, each with its
+#: reason. Nothing else of the reference may be missing from the port.
+TPU_ONLY = {
+    # The XLA formulation knobs of the TPU block step (which DFT program
+    # and precision XLA is handed). The port's block step has one
+    # formulation: the hand-written kernel on a card, plain torch on the
+    # CPU.
+    "ops/overlap_save.py:KernelTuning",
+    "ops/overlap_save.py:KernelTuning.from_env",
+    "ops/overlap_save.py:make_block_step(tuning)",
+    "engine/upsampler.py:StreamingUpsampler.__init__(kernel_tuning)",
+    "parallel/sharded.py:ShardedUpsampler.__init__(kernel_tuning)",
+    "parallel/sharded.py:make_sharded_step(tuning)",
+    "serve.py:StreamServer.__init__(kernel_tuning)",
+    # Two real DFTs packed into one complex DFT for the MXU's four-step
+    # program; the port's kernel packs the real frame itself
+    # (csrc/fused_frames.cu).
+    "ops/fft.py:fft2_real_split",
+    # The stacked four-step's split size: the MXU program picks P for
+    # the matrix unit's tiles; the port's plain DFT fixes its split.
+    "ops/fft.py:fft2_real_split_stacked(p)",
+    # The plain frame function takes the folded bundle (G, GW or the
+    # classic spectrum, folded once per filter on its device) where the
+    # XLA program takes the spectrum pair and folds it inside the jitted
+    # step; the XLA formulation knob goes with it.
+    "ops/overlap_save.py:upsample_frames(spectrum)",
+    "ops/overlap_save.py:upsample_frames(tuning)",
+    "ops/overlap_save.py:upsample_blocks(spectrum)",
+    "ops/overlap_save.py:upsample_blocks(tuning)",
+    # A jax.random key; torch draws the dither from an integer seed
+    # (a jax key has no torch counterpart).
+    "ops/device_pcm.py:quantize_s16_dithered(key)",
+}
+
+
+def _modules(root: str) -> list[str]:
+    out = []
+    for d, dirs, files in os.walk(root):
+        dirs[:] = sorted(x for x in dirs if x != "__pycache__")
+        out += [os.path.relpath(os.path.join(d, f), root)
+                for f in sorted(files) if f.endswith(".py")]
+    return out
+
+
+def _parse(path: str) -> ast.Module:
+    with open(path) as f:
+        return ast.parse(f.read())
+
+
+def _params(fn) -> list[str]:
+    a = fn.args
+    names = [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs]
+    names += [x.arg for x in (a.vararg, a.kwarg) if x is not None]
+    return [n for n in names if n not in ("self", "cls")]
+
+
+def _surface(tree: ast.Module, init: bool) -> dict[str, list[str]]:
+    """Public name -> its parameters (functions and methods; [] else);
+    methods as ``Class.method``."""
+    out: dict[str, list[str]] = {}
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            out[node.name] = _params(node)
+        elif isinstance(node, ast.ClassDef):
+            out[node.name] = []
+            for m in node.body:
+                if isinstance(m, (ast.FunctionDef, ast.AsyncFunctionDef)) \
+                        and (not m.name.startswith("_")
+                             or m.name == "__init__"):
+                    out[f"{node.name}.{m.name}"] = _params(m)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = (node.targets if isinstance(node, ast.Assign)
+                       else [node.target])
+            for t in targets:
+                if not isinstance(t, ast.Name):
+                    continue
+                if t.id == "__all__" and isinstance(node.value, ast.List):
+                    for e in node.value.elts:
+                        out.setdefault(e.value, [])
+                elif t.id == "_LAZY" and isinstance(node.value, ast.Dict):
+                    for k in node.value.keys:
+                        out.setdefault(k.value, [])
+                else:
+                    out[t.id] = []
+        elif init and isinstance(node, ast.ImportFrom):
+            for a in node.names:
+                out.setdefault(a.asname or a.name, [])
+    return {k: v for k, v in out.items()
+            if not k.split(".")[0].startswith("_")}
+
+
+def _missing(rel: str) -> set[str]:
+    init = rel.endswith("__init__.py")
+    ref = _surface(_parse(os.path.join(REF, rel)), init)
+    port = _surface(_parse(os.path.join(PORT, rel)), init)
+    out = set()
+    for name, params in ref.items():
+        if name not in port:
+            if not name.endswith(".__init__"):
+                out.add(f"{rel}:{name}")
+            continue
+        out |= {f"{rel}:{name}({p})" for p in params
+                if p not in port[name]}
+    return out
+
+
+def _compared() -> list[str]:
+    return [m for m in _modules(REF) if m not in COUNTERPARTS]
+
+
+@pytest.mark.parametrize("rel", _compared())
+def test_port_has_the_reference_surface(rel):
+    """(a) Nothing public of the reference module is missing from the
+    port's, outside TPU_ONLY."""
+    if not os.path.exists(os.path.join(PORT, rel)):
+        pytest.fail(f"{rel} has no counterpart in the port")
+    allowed = {n for n in TPU_ONLY if n.startswith(rel + ":")}
+    assert _missing(rel) - allowed == set()
+
+
+def test_tpu_only_names_are_still_missing():
+    """Every TPU_ONLY entry names something the reference has and the
+    port lacks: a stale entry fails."""
+    missing = set()
+    for rel in _compared():
+        if os.path.exists(os.path.join(PORT, rel)):
+            missing |= _missing(rel)
+    assert TPU_ONLY <= missing, sorted(TPU_ONLY - missing)
+
+
+def test_every_reference_module_has_a_counterpart():
+    """(b) The port is complete: every module of the reference exists at
+    its relative path in the port, or at the COUNTERPARTS path."""
+    absent = []
+    for rel in _modules(REF):
+        paths = COUNTERPARTS.get(rel, [rel])
+        absent += [f"{rel} -> {p}" for p in paths
+                   if not os.path.exists(os.path.join(PORT, p))]
+    assert absent == []
+    assert set(COUNTERPARTS) <= set(_modules(REF))
+
+
+def test_lazy_tables_name_modules_of_the_port():
+    """A ``_LAZY`` table maps each name to a module of the port that
+    defines it (checked by AST, so the lazy import cannot dangle)."""
+    for rel in _modules(PORT):
+        tree = _parse(os.path.join(PORT, rel))
+        for node in tree.body:
+            if not (isinstance(node, ast.Assign)
+                    and any(isinstance(t, ast.Name) and t.id == "_LAZY"
+                            for t in node.targets)):
+                continue
+            for k, v in zip(node.value.keys, node.value.values):
+                target = v.value.replace(".", "/") + ".py"
+                assert target.startswith("totton_tpu_torch/"), (rel, k.value)
+                path = os.path.join(REPO, target)
+                assert os.path.exists(path), (rel, k.value, target)
+                assert k.value in _surface(_parse(path), False), (
+                    rel, k.value, target)

@@ -20,7 +20,7 @@ import threading
 import numpy as np
 import torch
 
-from totton_tpu_torch.filters.sidecar import LoadedFilter
+from totton_tpu_torch.filters.sidecar import LoadedFilter, load_filter
 from totton_tpu_torch.io.pcm import PcmFormat
 from totton_tpu_torch import resolve_device
 from totton_tpu_torch.ops import device_pcm as _dp
@@ -149,6 +149,19 @@ class StreamingUpsampler:
             from totton_tpu_torch.io.pcm import TpdfDitherer
 
             self._host_ditherer = TpdfDitherer(self._pcm_seed)
+
+    @classmethod
+    def from_file(
+        cls,
+        json_path: str,
+        channels: int = 2,
+        eq_response: np.ndarray | None = None,
+        device: str | torch.device = "cuda",
+    ) -> "StreamingUpsampler":
+        """The upsampler for the filter sidecar at ``json_path`` (and its
+        .bin) on ``device``."""
+        return cls(load_filter(json_path), channels, eq_response,
+                   device=device)
 
     def _checked_config(self, filt: LoadedFilter) -> OverlapSaveConfig:
         """The filter's geometry; on CUDA, refuses up front a geometry

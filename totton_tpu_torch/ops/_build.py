@@ -6,7 +6,9 @@ The sources under ``totton_tpu_torch/csrc`` are compiled at first use with
          -Xcompiler -fPIC
 
 into ``<build root>/<hash>/``, keyed by a hash of the sources and flags,
-and loaded with ctypes. The build root is ``$TOTTON_TORCH_BUILD_DIR`` when
+and loaded with ctypes; ``check_tensor`` validates a wrapper's arguments
+before their pointers go to a kernel. The build root is
+``$TOTTON_TORCH_BUILD_DIR`` when
 set, else ``build/totton_tpu_torch/`` at the root of the checkout the
 package sits in, else (an installed package) a per-user cache directory.
 A plain C interface keeps the build to seconds (no PyTorch headers).
@@ -23,6 +25,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -95,3 +99,17 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(name)))
             _libs[name] = lib
         return lib
+
+
+def check_tensor(t: torch.Tensor, name: str, device: torch.device,
+                 shape=None) -> None:
+    """Raise unless ``t`` is a contiguous float32 tensor on ``device``
+    (of ``shape`` when given): what the kernels take."""
+    if t.device != device:
+        raise ValueError(f"{name} on {t.device}, expected {device}")
+    if t.dtype != torch.float32:
+        raise ValueError(f"{name} must be float32, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} shape {tuple(t.shape)} != {tuple(shape)}")

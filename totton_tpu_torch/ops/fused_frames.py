@@ -227,29 +227,18 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(t: torch.Tensor, name: str, device: torch.device, shape=None):
-    if t.device != device:
-        raise ValueError(f"{name} on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name} must be float32, got {t.dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} shape {tuple(t.shape)} != {tuple(shape)}")
-
-
 def _launch_cuda(frames: torch.Tensor, bundle: FoldedBundle,
                  cfg: OverlapSaveConfig) -> torch.Tensor:
     global LAUNCHES
     pl = kernel_plan(cfg)
     dev = frames.device
     n = frames.shape[0]
-    _check(frames, "frames", dev, (n, pl["m"]))
+    _build.check_tensor(frames, "frames", dev, (n, pl["m"]))
     if bundle.absorbed or bundle.classic:
         raise ValueError("the kernel takes the folded filter G: fold the "
                          "bundle on the CUDA device (fold_bundle)")
     g = bundle.weights
-    _check(g, "bundle.weights", dev,
+    _build.check_tensor(g, "bundle.weights", dev,
            (2, pl["h"], 2) if pl["halves"] else (pl["h"], 2))
     out = torch.empty((n, pl["block"]), dtype=torch.float32, device=dev)
     if n == 0:

@@ -1,3 +1,5 @@
-"""The web layer's constants and config service, copied from the JAX
-package (``web/constants.py``, ``web/services/config.py``) for the
-control plane's wiring; the web app itself is not ported."""
+"""Web control UI/API: copies of the JAX package's ``web/`` (the aiohttp +
+Jinja2 app, its templates and static files, i18n, and the config, EQ,
+daemon and restart services). ``totton-web-torch`` serves it; it speaks
+to the port's streamer over the ZeroMQ control endpoint.
+"""
