@@ -24,7 +24,8 @@ database) steers the live stream over HTTP beside the ``DaemonClient``;
 one of the low-latency serve streams goes through ``totton-serve-client-
 torch``. The time-domain EQ cascade's kernel (``csrc/biquad_cascade.cu``,
 built in parallel with the frame kernel) is checked against its plain
-version and a float64 ``sosfilt``, streamed in chunks and timed. It
+version and a float64 ``sosfilt``, streamed in chunks, timed, and swept
+over 1, 10, 32 and 40 bands. It
 prints one JSON line with both kernels and a final status line:
 
   {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": N}}
@@ -89,6 +90,18 @@ Filter 10: ON PK Fc 12000 Hz Gain 1.5 dB Q 1.0
 """
 IIR_CHUNK = 4096
 IIR_SECONDS = 60.0
+# The band sweep (phase iir (f)): IIR_PROFILE's ten bands and thirty peaks
+# more; each case takes the first S bands (S = 1, 10, 32: one launch each;
+# 40: two). Cases above IIR_PLAIN_FULL_BANDS hold the kernel against the
+# plain version on the chunk's first IIR_PLAIN_SHORT samples (the plain
+# version runs ~13 small launches a band a sample: 32 bands at 4096
+# samples would take ~19 s).
+IIR_SWEEP = (1, 10, 32, 40)
+IIR_PROFILE_40 = IIR_PROFILE + "".join(
+    f"Filter {11 + i}: ON PK Fc {300 + 500 * i} Hz Gain "
+    f"{1 if i % 2 else -1} dB Q 2\n" for i in range(30))
+IIR_PLAIN_FULL_BANDS = 10
+IIR_PLAIN_SHORT = 256
 # The float64 oracle's tolerance: the reference suite's
 # (tests/test_eq.py::TestTimeDomainCascade, assert_allclose).
 IIR_ORACLE_RTOL, IIR_ORACLE_ATOL = 1e-3, 2e-4
@@ -247,6 +260,27 @@ def cuda_time_ms(fn, warmup: int = 2, reps: int = 5) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2]
+
+
+def launch_ms(fn, reps: int = 20, batches: int = 3) -> float:
+    """Device ms per call of fn(): the median over ``batches`` of CUDA
+    events around ``reps`` calls back to back, so the host's enqueue of
+    one call overlaps the device's run of the one before (what a short
+    kernel's one-call event span cannot show)."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(batches):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
     return sorted(times)[len(times) // 2]
 
 
@@ -1487,6 +1521,90 @@ def iir_chain_ops(samples: int, bands: int) -> int:
     return 4 * samples + bands
 
 
+def iir_bound_ms(samples: int, bands: int, mhz: float):
+    """({"latency", "bytes", "operations": ms}, the side that sets the
+    bound) for a stereo cascade of ``bands`` over ``samples``: the chain
+    of iir_chain_ops at FP32_LATENCY_CYCLES each and ``mhz``; x and y,
+    the state in and out and the coefficients once at the HBM rate; 9
+    FLOP a band a sample and the preamp at the fp32 peak."""
+    bound = {"latency": (iir_chain_ops(samples, bands) * FP32_LATENCY_CYCLES
+                         / (mhz * 1e6) * 1e3),
+             "bytes": (2 * 2 * samples * 4 + 2 * 2 * bands * 2 * 4
+                       + bands * 5 * 4) / PEAK_BYTES_S * 1e3,
+             "operations": 2 * samples * (9 * bands + 1) / PEAK_FP32_FLOPS
+             * 1e3}
+    return bound, max(bound, key=bound.get)
+
+
+def cycles_per_sample(ms: float, mhz: float, samples: int) -> float:
+    """SM cycles at ``mhz`` per sample of one channel (the channels run
+    side by side)."""
+    return ms * mhz * 1e3 / samples
+
+
+def iir_sweep(device, xc, s0, ref, ref_st, mhz):
+    """Phase iir (f): the kernel at S = IIR_SWEEP bands on the chunk
+    ``xc`` (one launch up to iir.MAX_BANDS bands), each against the plain
+    version with a carried state (S = 10 is (a): ``s0``, ``ref``,
+    ``ref_st``; above IIR_PLAIN_FULL_BANDS on the first IIR_PLAIN_SHORT
+    samples, where the full run's first samples must equal a short run's
+    bit for bit) and timed with CUDA events (``launch_ms``). Leaves
+    iir.LAUNCHES as it found it. Returns the printed cases."""
+    import numpy as np
+    import torch
+
+    from totton_tpu_torch.eq import iir
+    from totton_tpu_torch.eq.apo import parse_eq_string
+
+    coeffs, preamp = iir.profile_to_coeff_matrix(
+        parse_eq_string(IIR_PROFILE_40), RATE)
+    c40 = torch.from_numpy(coeffs).to(xc.device)
+    st40 = torch.from_numpy((np.random.default_rng(41).normal(
+        size=(2, coeffs.shape[0], 2)) * 0.01).astype(np.float32)).to(
+        xc.device)
+    saved = iir.LAUNCHES
+    chunk = xc.shape[1]
+    cases = []
+    for bands in IIR_SWEEP:
+        c = c40[:bands]
+        st = s0 if bands == s0.shape[1] else st40[:, :bands].contiguous()
+        before = iir.LAUNCHES
+        y, y_st = iir.cascade(xc, c, st, preamp)
+        launches = iir.LAUNCHES - before
+        m = chunk if bands <= IIR_PLAIN_FULL_BANDS else IIR_PLAIN_SHORT
+        if bands == s0.shape[1]:
+            r, r_st = ref, ref_st
+        else:
+            r, r_st = iir.cascade_plain(xc[:, :m], c, st, preamp)
+        prefix_lsb = 0.0
+        if m < chunk:
+            y_m, y_st = iir.cascade(xc[:, :m].contiguous(), c, st, preamp)
+            prefix_lsb = (y[:, :m] - y_m).abs().max().item()
+        rel = ((y[:, :m] - r).abs().max() / r.abs().max()).item()
+        st_rel = ((y_st - r_st).abs().max() / r_st.abs().max()).item()
+        if not (rel <= REL_TOL and st_rel <= REL_TOL and prefix_lsb == 0.0
+                and (device != "cuda"
+                     or launches == -(-bands // iir.MAX_BANDS))
+                and torch.isfinite(y).all().item()):
+            raise AssertionError(
+                f"biquad_cascade sweep, {bands} bands: rel {rel:.3e}, state "
+                f"rel {st_rel:.3e}, prefix max |diff| {prefix_lsb}, "
+                f"launches {launches}")
+        ms = (launch_ms(lambda: iir.cascade(xc, c, st, preamp))
+              if device == "cuda" else float("nan"))
+        bound, side = iir_bound_ms(chunk, bands, mhz)
+        cases.append(
+            f"S={bands}: {launches} launch{'es' if launches > 1 else ''}, "
+            f"rel {rel:.3e}, state rel {st_rel:.3e} vs plain at {m} samples"
+            + (f" (the {chunk}-sample run's first {m} equal a {m}-sample "
+               f"run's)" if m < chunk else "")
+            + f", {ms:.4f} ms = {cycles_per_sample(ms, mhz, chunk):.1f} "
+            f"cycles a sample, {bound[side] / ms:.1%} of the {side} bound "
+            f"{bound[side]:.4f} ms")
+    iir.LAUNCHES = saved
+    return cases
+
+
 def iir_phase(card, device="cuda", seconds=IIR_SECONDS, chunk=IIR_CHUNK):
     """The time-domain EQ cascade (eq/iir.py, csrc/biquad_cascade.cu) on
     IIR_PROFILE, stereo at 44.1 kHz: (a) kernel vs plain at one ``chunk``
@@ -1495,8 +1613,10 @@ def iir_phase(card, device="cuda", seconds=IIR_SECONDS, chunk=IIR_CHUNK):
     noise against a float64 ``sosfilt`` (the reference suite's
     tolerance); (c) ``BiquadCascade`` fed ``chunk``-frame chunks equals
     (b) bit for bit; (d) the kernel timed with CUDA events at the chunk
-    and on the whole signal (ms per second of audio); (e) its bound.
-    Returns the kernels-line entry; its launches are (b) and (c)'s."""
+    (per launch back to back, ``launch_ms``, and one call with a cold
+    L2) and on the whole signal (ms per second of audio), with SM cycles
+    a sample; (e) its bound; (f) the band sweep (``iir_sweep``). Returns the
+    kernels-line entry; its launches are (b) and (c)'s."""
     import numpy as np
     import torch
     from scipy import signal as ssig
@@ -1560,23 +1680,21 @@ def iir_phase(card, device="cuda", seconds=IIR_SECONDS, chunk=IIR_CHUNK):
         raise AssertionError("the cascade never launched biquad_cascade")
 
     # (d) Kernel times (launches not counted), (e) the bound.
-    k_ms = k_all_ms = mhz = float("nan")
+    k_ms = k_one_ms = k_all_ms = mhz = float("nan")
     if device == "cuda":
         xt = torch.from_numpy(x).to(dev)
         z = torch.zeros((2, bands, 2), dtype=torch.float32, device=dev)
-        k_ms = cuda_time_ms(lambda: iir.cascade(xc, c, s0, preamp))
+        k_ms = launch_ms(lambda: iir.cascade(xc, c, s0, preamp))
+        k_one_ms = cuda_time_ms(lambda: iir.cascade(xc, c, s0, preamp))
         k_all_ms = cuda_time_ms(lambda: iir.cascade(xt, c, z, preamp),
                                 warmup=1, reps=3)
         mhz = card_max_sm_mhz()
         del xt
     iir.LAUNCHES = saved + launches
     chain = iir_chain_ops(chunk, bands)
-    bound = {"latency": chain * FP32_LATENCY_CYCLES / (mhz * 1e6) * 1e3,
-             "bytes": (2 * 2 * chunk * 4 + 2 * 2 * bands * 2 * 4
-                       + bands * 5 * 4) / PEAK_BYTES_S * 1e3,
-             "operations": 2 * chunk * (9 * bands + 1) / PEAK_FP32_FLOPS
-             * 1e3}
-    bound_by = max(bound, key=bound.get)
+    bound, bound_by = iir_bound_ms(chunk, bands, mhz)
+    # (f) The band sweep (its launches not counted).
+    sweep = iir_sweep(device, xc, s0, ref, ref_st, mhz)
     no_jax()
     phase("iir", f"{bands}-band APO cascade (PK/LS/HS), stereo 44.1 kHz: "
           f"(a) kernel vs plain at {chunk} samples, carried state: rel "
@@ -1585,14 +1703,23 @@ def iir_phase(card, device="cuda", seconds=IIR_SECONDS, chunk=IIR_CHUNK):
           f"{o_rel:.3e} (allclose rtol {IIR_ORACLE_RTOL:g} atol "
           f"{IIR_ORACLE_ATOL:g}: {o_ok}); (c) {chunk}-frame chunks vs "
           f"one-shot max |diff| {s_lsb:g}; biquad_cascade launches "
-          f"{launches}; (d) kernel {k_ms:.4f} ms per {chunk}-sample chunk, "
-          f"{k_all_ms:.3f} ms for {seconds:g} s ({k_all_ms / seconds:.4f} "
-          f"ms per second of audio), plain {p_ms:.1f} ms per chunk (one "
-          f"run); (e) bound at {chunk} samples {bound[bound_by]:.4f} ms "
-          f"({bound_by}: {chain} dependent FP32 operations x "
-          f"{FP32_LATENCY_CYCLES} cycles at {mhz:g} MHz; bytes "
-          f"{bound['bytes']:.6f}, operations {bound['operations']:.6f}); "
-          f"kernel at {bound[bound_by] / k_ms:.1%} of it on {card}")
+          f"{launches}; (d) kernel {k_ms:.4f} ms per {chunk}-sample chunk "
+          f"(per launch, {chunk}-sample chunks back to back; "
+          f"{cycles_per_sample(k_ms, mhz, chunk):.1f} cycles a sample at "
+          f"{mhz:g} MHz; one call with a cold L2, host enqueue included: "
+          f"{k_one_ms:.4f} ms), {k_all_ms:.3f} ms for {seconds:g} s "
+          f"({k_all_ms / seconds:.4f} ms per second of audio, "
+          f"{cycles_per_sample(k_all_ms, mhz, x.shape[1]):.1f} cycles a "
+          f"sample), plain {p_ms:.1f} ms per chunk (one run); (e) bound at "
+          f"{chunk} samples {bound[bound_by]:.4f} ms ({bound_by}: {chain} "
+          f"dependent FP32 operations x {FP32_LATENCY_CYCLES} cycles at "
+          f"{mhz:g} MHz; bytes {bound['bytes']:.6f}, operations "
+          f"{bound['operations']:.6f}); kernel at "
+          f"{bound[bound_by] / k_ms:.1%} of it on {card}")
+    phase("iir", f"(f) band sweep at {chunk} samples, stereo, carried "
+          f"state, ms per launch back to back (limit rel {REL_TOL:g}): "
+          + "; ".join(sweep)
+          + f" on {card}")
     return {
         "name": "biquad_cascade",
         "route": "cuda",
@@ -1607,6 +1734,7 @@ def iir_phase(card, device="cuda", seconds=IIR_SECONDS, chunk=IIR_CHUNK):
         "library_ms": None,
         "shape": f"2 x {chunk} samples, {bands} bands",
         "ms_per_audio_second": k_all_ms / seconds,
+        "one_call_ms": k_one_ms,
     }
 
 

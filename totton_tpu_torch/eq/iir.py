@@ -13,19 +13,26 @@ bands, vmapped over channels). Two implementations sit under
 - plain torch (``cascade_plain``): a loop over samples, vectorised over
   channels, with the same TDF2 update in the same order. It is the CPU
   path and the oracle of the kernel.
-- the hand-written CUDA kernel ``csrc/biquad_cascade.cu`` (one thread per
-  channel, coefficients and state in registers; at most
-  ``MAX_BANDS`` bands a launch, a longer cascade runs as consecutive
-  groups). What bounds it is the recursion's chain of dependent FMAs
-  (see the .cu header), not bytes.
+- the hand-written CUDA kernel ``csrc/biquad_cascade.cu``: a band-per-lane
+  wavefront, one warp per channel with band i in lane i (coefficients and
+  state in registers), the samples in tiles of 32 handed from lane to
+  lane through padded, double-buffered shared memory, so a channel takes
+  ceil(T / 32) + S - 1 steps of one band's 32-sample recursion. At most
+  ``MAX_BANDS`` (32) bands a launch; a longer cascade runs as consecutive
+  launches, later ones filtering y in place, each reading and writing its
+  slice of the state. What bounds it is the recursion's chain of
+  dependent FMAs (see the .cu header), not bytes.
 
 Rules: a CPU tensor runs the plain version; a CUDA tensor runs the kernel
 or raises (a build error names nvcc's output). ``LAUNCHES`` counts
 kernel launches. Both round as the reference's XLA program does (fused
 multiply-adds where XLA contracts; the kernel writes them out as
-intrinsics), so they agree to the last bit but for a rare double
-rounding of the plain version's float64 emulation; the tests hold them
-to rel 1e-5 of the peak.
+intrinsics, and its schedule keeps each band's samples and each sample's
+bands in order), so they agree to the last bit but for a rare double
+rounding of the plain version's float64 emulation; the card's tests hold
+them to rel 1e-5 of the peak, and the kernel source built for the CPU
+(``tests/test_torch_cascade_source.py``) equals the plain version bit for
+bit.
 """
 
 from __future__ import annotations
@@ -45,7 +52,7 @@ from totton_tpu_torch.ops import _build
 LAUNCHES = 0
 
 #: Bands one launch takes (the .cu's MAX_BANDS).
-MAX_BANDS = 16
+MAX_BANDS = 32
 
 
 def profile_to_coeff_matrix(
@@ -96,22 +103,51 @@ def cascade_plain(x: torch.Tensor, coeffs: torch.Tensor,
     return y, new_state
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("biquad_cascade")
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the kernel library's C interface on ``lib``."""
     fn = lib.totton_biquad_cascade
     if fn.argtypes is None:
         vp = ctypes.c_void_p
-        fn.argtypes = [vp, vp, vp, vp, ctypes.c_float, ctypes.c_int,
-                       ctypes.c_longlong, ctypes.c_int, vp]
+        fn.argtypes = [vp, vp, vp, vp, vp, ctypes.c_float, ctypes.c_int,
+                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, vp]
         fn.restype = ctypes.c_int
         lib.totton_cuda_error_string.argtypes = [ctypes.c_int]
         lib.totton_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def _lib() -> ctypes.CDLL:
+    return _bind(_build.load("biquad_cascade"))
+
+
+def _launch(lib: ctypes.CDLL, x: torch.Tensor, coeffs: torch.Tensor,
+            state: torch.Tensor, preamp: float, stream
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The launches for checked, contiguous arguments with n > 0: one per
+    group of at most MAX_BANDS bands. The first filters x into y, later
+    ones filter y in place; each reads its bands' slice of ``state`` and
+    writes it into the new state."""
+    global LAUNCHES
+    c, n = x.shape
+    s = coeffs.shape[0]
+    y = torch.empty_like(x)
+    new_state = torch.empty_like(state)
+    for lo in range(0, s, MAX_BANDS):
+        rc = lib.totton_biquad_cascade(
+            (x if lo == 0 else y).data_ptr(), y.data_ptr(),
+            coeffs.data_ptr(), state.data_ptr(), new_state.data_ptr(),
+            preamp if lo == 0 else 1.0, c, n, min(MAX_BANDS, s - lo), lo, s,
+            stream)
+        if rc != 0:
+            msg = lib.totton_cuda_error_string(rc).decode()
+            raise RuntimeError(f"biquad_cascade launch failed: {msg} ({rc})")
+        LAUNCHES += 1
+    return y, new_state
+
+
 def _launch_cuda(x: torch.Tensor, coeffs: torch.Tensor, state: torch.Tensor,
                  preamp: float) -> tuple[torch.Tensor, torch.Tensor]:
-    global LAUNCHES
     dev = x.device
     c, n = x.shape
     s = coeffs.shape[0]
@@ -121,27 +157,9 @@ def _launch_cuda(x: torch.Tensor, coeffs: torch.Tensor, state: torch.Tensor,
     if n == 0:
         return torch.empty_like(x), state.clone()
     lib = _lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    new_state = state.clone()
-    src, y = x, None
     with torch.cuda.device(dev):
-        for lo in range(0, s, MAX_BANDS):
-            hi = min(lo + MAX_BANDS, s)
-            # A group's state is a contiguous copy, written back after.
-            group = new_state[:, lo:hi].contiguous()
-            y = torch.empty_like(x)
-            rc = lib.totton_biquad_cascade(
-                src.data_ptr(), y.data_ptr(), coeffs[lo:hi].data_ptr(),
-                group.data_ptr(), preamp if lo == 0 else 1.0, c, n, hi - lo,
-                stream)
-            if rc != 0:
-                msg = lib.totton_cuda_error_string(rc).decode()
-                raise RuntimeError(f"biquad_cascade launch failed: {msg} "
-                                   f"({rc})")
-            LAUNCHES += 1
-            new_state[:, lo:hi] = group
-            src = y
-    return y, new_state
+        return _launch(lib, x, coeffs, state, preamp,
+                       torch.cuda.current_stream(dev).cuda_stream)
 
 
 def cascade(x: torch.Tensor, coeffs: torch.Tensor, state: torch.Tensor,
