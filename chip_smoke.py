@@ -3,12 +3,16 @@
 
 Builds the port's CUDA frame kernel from this checkout's sources, checks it
 against its plain torch version (at every frame count the main path gives
-it) and against a float64 oracle, drives the port's main path
-(``totton-stream-torch`` file mode, 16x / 80001 taps, stereo s16, the
-bundled filter) through the kernel, times the kernel against its plain
-version and the same function composed of ``torch.fft`` calls (cuFFT,
-the yardstick ``library_ms``) with a cold L2, computes the kernel's bound
-from its work, times each of its launches, serves concurrent client streams
+it, on its three-launch plan (the 80k bank) and its resident one-launch
+plan (the 8k bank, ratio 1)) and against a float64 oracle (16x/80k and
+16x/8k), checks the classic odd-overlap program on the card, drives the
+port's main path (``totton-stream-torch`` file mode, 16x / 80001 taps,
+stereo s16, the bundled filter) through the kernel, times the kernel
+against its plain version and the same function composed of ``torch.fft``
+calls (cuFFT, the yardstick ``library_ms``) with a cold L2 at 16x/80k,
+16x/8k and ratio 1, computes the kernel's bound from its work, times each
+of its launches (and fails if a dispatch launches other than its plan's
+count), serves concurrent client streams
 through the port's ``StreamServer`` (16x/80k f32 with a live filter swap;
 the 16x/8k bank with device PCM and s16 clients) against the offline
 kernel output, runs the kernel's ratio-1 branch through the CLI's EQ-only
@@ -32,6 +36,10 @@ prints one JSON line with both kernels and a final status line:
 
 Exits non-zero, printing no result, without CUDA or outside the repository.
 Imports nothing of JAX and nothing of the JAX package (``totton_tpu``).
+
+``python3 chip_smoke.py --frames ROOT`` times only the frame kernel of the
+checkout at ROOT (see ``frames_main``): run it on a parent commit and on
+this tree in turns to compare the two on one card.
 """
 
 from __future__ import annotations
@@ -49,10 +57,19 @@ sys.path.insert(0, HERE)
 
 FILTER_DIR = os.path.join(HERE, "data", "coefficients")
 MAIN_FILTER = "filter_44k_16x_80000_min_phase"
-PARITY_FILTERS = (MAIN_FILTER, "filter_44k_2x_80000_min_phase",
-                  "filter_44k_16x_8000_min_phase")
+# The low-latency bank's 16x filter: the frame kernel's resident plan.
+LOW_FILTER = "filter_44k_16x_8000_min_phase"
+# Three-launch plans (fused and four-step forward), then resident ones:
+# 2x/8k is the resident plan's largest frame.
+PARITY_FILTERS = (MAIN_FILTER, "filter_44k_2x_80000_min_phase", LOW_FILTER,
+                  "filter_44k_2x_8000_min_phase")
 REL_TOL = 1e-5       # kernel vs plain on the card (fp32, other sum order)
 SNR_GATE_DB = 125.0  # vs the float64 oracle (bench.py's gate)
+SNR_BLOCKS = 32      # blocks of one channel against the oracle
+# The classic odd-overlap program (even taps at ratio 1): its geometry
+# and blocks against a float64 convolution.
+CLASSIC_GEOMETRY = (1024, 4096, 1)
+CLASSIC_BLOCKS = 32
 # Frame counts the main path hands the kernel besides its full 512-block
 # stereo dispatch (1024 frames, checked in phase 6): the ragged 32/8/1-block
 # tail dispatches (64, 16, 2), one off every tile edge (18), a round 128,
@@ -61,12 +78,14 @@ SNR_GATE_DB = 125.0  # vs the float64 oracle (bench.py's gate)
 PARITY_FRAMES = (2, 16, 18, 32, 64, 128, 256, 512)
 RATE = 44100
 SERVE_FADE = 4096    # output frames of the live swap's crossfade
-# The kernel's launches by their store functor (fft_stage<N, INV, Load,
-# Store>): the fused forward (F) or its two four-step launches (F1, F2),
-# then I1 and I2.
-LAUNCH_NAMES = {"SpecStore": "F", "FwdStage1Store": "F1",
-                "FwdStage2Store": "F2", "InvStage1Store": "I1",
-                "OutStore": "I2"}
+# The frame kernel's device functions: fft_resident<M, H>, the resident
+# plan's one launch (R), and fft_stage<N, INV, Load, Store>, the
+# three-launch plan's, named by its store functor: the fused forward (F)
+# or its two four-step launches (F1, F2), then I1 and I2.
+FRAME_KERNELS = ("fft_resident", "fft_stage")
+LAUNCH_NAMES = {"fft_resident": "R", "SpecStore": "F",
+                "FwdStage1Store": "F1", "FwdStage2Store": "F2",
+                "InvStage1Store": "I1", "OutStore": "I2"}
 # The card's peaks (NVIDIA's data sheet, H100 SXM at 700 W): fp32 on the
 # CUDA cores and HBM3; bound_ms is the larger of the two times.
 PEAK_FP32_FLOPS = 67e12
@@ -149,11 +168,12 @@ def kernel_vs_plain(frames, bundle, cfg) -> tuple[float, float]:
     return rel, err
 
 
-def launch_times_ms(fn, labels, reps: int = 3):
-    """(device ms per launch of each of the kernel's launches (``labels``,
-    e.g. F, I1, I2), kernel launches per call of fn()) from torch.profiler
-    over ``reps`` calls of fn(), each after an L2 flush; (None, None)
-    where the profiler records no device time."""
+def launch_times_ms(fn, reps: int = 3):
+    """(device ms per launch of each of the frame kernel's launches the
+    profiler saw, by label (LAUNCH_NAMES: R, or F, I1, I2, ...), kernel
+    launches per call of fn()) from torch.profiler over ``reps`` calls of
+    fn(), each after an L2 flush; (None, None) where the profiler records
+    no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -167,7 +187,7 @@ def launch_times_ms(fn, labels, reps: int = 3):
         torch.cuda.synchronize()
     out, launches = {}, 0
     for ev in prof.key_averages():
-        if "fft_stage" not in ev.key:
+        if not any(k in ev.key for k in FRAME_KERNELS):
             continue
         us = max(getattr(ev, a, 0) or 0 for a in (
             "device_time_total", "self_device_time_total",
@@ -176,7 +196,7 @@ def launch_times_ms(fn, labels, reps: int = 3):
             if store in ev.key and us > 0:
                 out[label] = us / 1e3 / ev.count
                 launches += ev.count
-    if set(out) != set(labels):
+    if not out:
         return None, None
     return out, launches // reps if launches % reps == 0 else launches / reps
 
@@ -296,6 +316,204 @@ def library_frames(frames, hspec, cfg):
         full = torch.cat([x, x[..., 1:-1].flip(-1).conj()], -1)
         x = torch.cat([full.repeat(1, cfg.ratio // 2), x[..., :1]], -1)
     return torch.fft.irfft(x * hspec, n=cfg.fft_size)[..., cfg.overlap:]
+
+
+def frame_reading(label, cfg, bundle, hspec, rng, blocks=512,
+                  profile=True) -> dict:
+    """One stereo dispatch of ``blocks`` blocks (2 x blocks frames) of
+    ``cfg`` on the card: kernel vs plain (rel) and the torch.fft
+    composition vs plain; the three timed in turns (kernel, plain,
+    library, library, plain, kernel; the lower of each one's two medians
+    of 5), the L2 flushed before every run; the wrapper's host time to
+    enqueue the kernel (the median of 21 calls on an idle card); the
+    bound; with ``profile``,
+    each launch's device ms and the launches a dispatch (torch.profiler),
+    which must equal the plan's (``flops_per_launch``) or the run fails.
+    Leaves fused_frames.LAUNCHES as it found it."""
+    import numpy as np
+    import torch
+
+    from totton_tpu_torch.ops import fused_frames as ff
+    from totton_tpu_torch.ops import overlap_save as osv
+
+    n = 2 * blocks
+    saved = ff.LAUNCHES
+    frames = torch.from_numpy((rng.normal(size=(n, cfg.frame_in)) * 0.3)
+                              .astype(np.float32)).to("cuda")
+    rel, err = kernel_vs_plain(frames, bundle, cfg)
+    ref = osv.upsample_frames(frames, bundle, cfg)
+    lib_rel = ((library_frames(frames, hspec, cfg) - ref).abs().max()
+               / ref.abs().max()).item()
+    del ref
+    fns = {"kernel": lambda: ff.fused_upsample_frames(frames, bundle, cfg),
+           "plain": lambda: osv.upsample_frames(frames, bundle, cfg),
+           "library": lambda: library_frames(frames, hspec, cfg)}
+    runs = {k: [] for k in fns}
+    for k in ("kernel", "plain", "library", "library", "plain", "kernel"):
+        runs[k].append(cuda_time_ms(fns[k], reps=5))
+    ms = {k: min(v) for k, v in runs.items()}
+    host = []
+    for _ in range(21):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fns["kernel"]()
+        host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    bound, bound_by = kernel_bound_ms(cfg, n)
+    labels = list(ff.flops_per_launch(cfg))
+    per_launch = per_dispatch = None
+    why = "not profiled"
+    if profile:
+        try:
+            per_launch, per_dispatch = launch_times_ms(fns["kernel"])
+            why = "the profiler recorded no device time"
+        except RuntimeError as e:  # the profiler, not the kernel, failed
+            why = f"profiler error: {e}"
+    ff.LAUNCHES = saved
+    del frames
+    if per_dispatch is not None and (per_dispatch != len(labels)
+                                     or set(per_launch) != set(labels)):
+        raise AssertionError(
+            f"{label}: the profiler saw {per_dispatch} kernel launches per "
+            f"dispatch ({sorted(per_launch)}); the plan has {len(labels)} "
+            f"({labels})")
+    return dict(label=label, cfg=cfg, blocks=blocks, rel=rel, err=err,
+                lib_rel=lib_rel, ms=ms, host_ms=sorted(host)[10], medians={
+                    k: [round(v, 4) for v in r] for k, r in runs.items()},
+                bound=bound, bound_by=bound_by, labels=labels,
+                per_launch=per_launch, per_dispatch=per_dispatch, why=why)
+
+
+def reading_line(r: dict, card: str) -> str:
+    """A frame_reading as one phase line."""
+    from totton_tpu_torch.ops import fused_frames as ff
+
+    cfg, n = r["cfg"], 2 * r["blocks"]
+    k, p, lib = r["ms"]["kernel"], r["ms"]["plain"], r["ms"]["library"]
+    b = r["bound"][r["bound_by"]]
+    if r["per_launch"] is None:
+        launches = f"launches a dispatch and per launch: not measured " \
+                   f"({r['why']})"
+    else:
+        by = ff.bytes_per_launch(cfg)
+        launches = (f"{r['per_dispatch']:g} launch"
+                    f"{'es' if r['per_dispatch'] != 1 else ''} a dispatch "
+                    f"(plan {len(r['labels'])}): " + ", ".join(
+                        f"{x} {r['per_launch'][x]:.4f} ms "
+                        f"({by[x] * n / r['per_launch'][x] / 1e6:.0f} GB/s)"
+                        for x in r["labels"]))
+    return (f"{r['blocks']} blocks stereo {r['label']}, cold L2: kernel vs "
+            f"plain rel {r['rel']:.3e}, torch.fft composition vs plain rel "
+            f"{r['lib_rel']:.3e}; kernel {k:.4f} ms "
+            f"({n * cfg.block_size / k / 1e6:.3f} G samples/s; the wrapper's "
+            f"host time to enqueue it {r['host_ms']:.4f} ms), plain "
+            f"{p:.3f} ms, torch.fft composition {lib:.4f} ms (the lower of "
+            f"two medians of 5; medians {json.dumps(r['medians'])}); bound "
+            f"{b:.4f} ms ({r['bound_by']}; operations "
+            f"{r['bound']['operations']:.4f}, bytes "
+            f"{r['bound']['bytes']:.4f}): kernel at {b / k:.1%} of it, "
+            f"torch.fft at {b / lib:.1%}; {launches} on {card}")
+
+
+def reading_entry(r: dict) -> dict:
+    """A frame_reading's numbers for the kernels line."""
+    return {"ms": r["ms"]["kernel"], "plain_ms": r["ms"]["plain"],
+            "library_ms": r["ms"]["library"],
+            "bound_ms": r["bound"][r["bound_by"]], "bound_by": r["bound_by"],
+            "launches_per_dispatch": r["per_dispatch"],
+            "max_abs_err": r["err"]}
+
+
+def engine_state(name, dev):
+    """(filter, cfg, folded bundle, torch.fft spectrum) of the bundled
+    filter ``name`` on ``dev``; raises if the card folded GW."""
+    import numpy as np
+    import torch
+
+    from totton_tpu_torch.filters.sidecar import load_filter
+    from totton_tpu_torch.ops import overlap_save as osv
+
+    lf = load_filter(os.path.join(FILTER_DIR, name + ".json"))
+    cfg = osv.OverlapSaveConfig.from_sidecar(lf.sidecar)
+    spec = osv.filter_spectrum(lf.taps, cfg.fft_size, device=dev)
+    bundle = osv.fold_bundle(spec, cfg)
+    if bundle.absorbed:
+        raise AssertionError(f"{name}: the card folded GW; the kernel "
+                             "takes the folded G")
+    hspec = torch.fft.rfft(torch.from_numpy(lf.taps.astype(np.float64))
+                           .to(dev), n=cfg.fft_size).to(torch.complex64)
+    return lf, cfg, bundle, hspec
+
+
+def snr_db(lf, cfg, bundle, rng, blocks=SNR_BLOCKS) -> tuple[float, float]:
+    """(kernel, plain) SNR in dB of ``blocks`` blocks of one seeded
+    channel through ``lf`` on the card, against the float64 oracle: the
+    zero-stuffed input convolved with the taps by a float64 FFT."""
+    import numpy as np
+    import torch
+
+    from totton_tpu_torch.ops import fused_frames as ff
+    from totton_tpu_torch.ops import overlap_save as osv
+
+    xs = (rng.normal(size=(1, cfg.halo_in + blocks * cfg.block_in))
+          * 0.3).astype(np.float32)
+    xs_dev = torch.from_numpy(xs).to("cuda")
+    up = np.zeros(xs.shape[1] * cfg.ratio)
+    up[::cfg.ratio] = xs[0]
+    n_fft = 1 << int(np.ceil(np.log2(len(up) + cfg.taps - 1)))
+    ref = np.fft.irfft(np.fft.rfft(up, n_fft)
+                       * np.fft.rfft(lf.taps.astype(np.float64), n_fft),
+                       n_fft)[: len(up)]
+    ref = ref[cfg.halo_in * cfg.ratio:]
+
+    def snr(y):
+        y = y.cpu().numpy()[0].astype(np.float64)
+        return 10 * np.log10(np.sum(ref ** 2) / np.sum((y - ref) ** 2))
+
+    return (snr(ff.fused_upsample_blocks(xs_dev, bundle, cfg)),
+            snr(osv.upsample_blocks(xs_dev, bundle, cfg)))
+
+
+def classic_phase(card, rng, device="cuda", blocks=CLASSIC_BLOCKS) -> None:
+    """The classic odd-overlap program (``overlap_save.
+    _upsample_frames_classic``: even taps at ratio 1, no kernel; its DFTs
+    are matmuls) on ``device`` at CLASSIC_GEOMETRY: rel against the same
+    program on the CPU, and the SNR of both against a float64
+    convolution. Fails only on a wrong shape or non-finite output: a
+    number below the gate is a finding, printed as such."""
+    import numpy as np
+    import torch
+
+    from totton_tpu_torch.ops import overlap_save as osv
+
+    taps, fft, ratio = CLASSIC_GEOMETRY
+    cfg = osv.OverlapSaveConfig(taps, fft, fft - taps + 1, ratio)
+    h = rng.normal(size=taps) * np.exp(-np.arange(taps) / (taps / 8))
+    x = (rng.normal(size=(1, cfg.halo_in + blocks * cfg.block_in))
+         * 0.3).astype(np.float32)
+    ys = {}
+    for dev in (device, "cpu"):
+        bundle = osv.fold_bundle(osv.filter_spectrum(h, fft, device=dev), cfg)
+        if not bundle.classic:
+            raise AssertionError("an odd overlap must fold the classic bundle")
+        ys[dev] = osv.upsample_blocks(torch.from_numpy(x).to(dev), bundle,
+                                      cfg).cpu().numpy()[0].astype(np.float64)
+    ref = np.convolve(x[0].astype(np.float64), h)[cfg.halo_in:
+                                                  cfg.halo_in
+                                                  + blocks * cfg.block_size]
+    y = ys[device]
+    if not (y.shape == ref.shape and np.isfinite(y).all()):
+        raise AssertionError(f"classic program on {device}: shape "
+                             f"{y.shape}, expected {ref.shape}")
+    rel = float(np.abs(y - ys["cpu"]).max() / np.abs(ys["cpu"]).max())
+    snrs = {d: 10 * np.log10(np.sum(ref ** 2) / np.sum((v - ref) ** 2))
+            for d, v in ys.items()}
+    gate = "passed" if min(snrs.values()) > SNR_GATE_DB else "MISSED"
+    phase("classic", f"odd overlap ({taps} taps, fft {fft}, ratio {ratio}; "
+          f"the classic program, matmul DFTs, no kernel), {blocks} blocks of "
+          f"one channel: {device} vs cpu rel {rel:.3e}; vs float64 "
+          f"convolution {device} {snrs[device]:.2f} dB, cpu "
+          f"{snrs['cpu']:.2f} dB (gate > {SNR_GATE_DB:g}: {gate}) on {card}")
 
 
 def free_port() -> int:
@@ -701,15 +919,14 @@ def ratio1_states(device, profile_path):
 
 def ratio1_phase(card, work, device="cuda", seconds=40.0):
     """totton-stream-torch --ratio 1 --eq-profile on ``device`` against the
-    same command on the CPU (<= 1 LSB), then kernel vs plain timed at a
-    512-block ratio-1 stereo dispatch. Returns the launches."""
+    same command on the CPU (<= 1 LSB), then (on the card) the
+    frame_reading of a 512-block ratio-1 stereo dispatch. Returns (the
+    launches, the reading or None)."""
     import numpy as np
     import torch
 
     from totton_tpu_torch.io.wav import read_wav, write_wav
     from totton_tpu_torch.testing.signals import sine
-    from totton_tpu_torch.ops import fused_frames as ff
-    from totton_tpu_torch.ops import overlap_save as osv
 
     profile = write_profile(work)
     x = sine(1000.0, seconds, RATE, amplitude=0.5, channels=2)
@@ -735,38 +952,33 @@ def ratio1_phase(card, work, device="cuda", seconds=40.0):
     if device == "cuda" and launches < 1:
         raise AssertionError("--ratio 1 never launched fused_frames")
     eq_db = 20 * np.log10(np.abs(outs[device]).max() / np.abs(x).max())
-    (_, cfg, bundle, spec), = [s for s in ratio1_states(device, profile)
-                               if s[1].taps == 1025]
-    k_ms = p_ms = l_ms = lib_rel = float("nan")
-    n = 2 * 512
-    bound, bound_by = kernel_bound_ms(cfg, n)
-    if device == "cuda":
-        frames = torch.from_numpy((np.random.default_rng(2).normal(
-            size=(n, cfg.frame_in)) * 0.3).astype(np.float32)).to(device)
-        hspec = torch.complex(spec[0], spec[1])
-        ref = osv.upsample_frames(frames, bundle, cfg)
-        lib_rel = ((library_frames(frames, hspec, cfg) - ref).abs().max()
-                   / ref.abs().max()).item()
-        saved = ff.LAUNCHES
-        k_ms = cuda_time_ms(lambda: ff.fused_upsample_frames(frames, bundle,
-                                                              cfg))
-        p_ms = cuda_time_ms(lambda: osv.upsample_frames(frames, bundle, cfg))
-        l_ms = cuda_time_ms(lambda: library_frames(frames, hspec, cfg))
-        ff.LAUNCHES = saved
-        del frames, ref
     no_jax()
     phase("ratio1", f"totton-stream-torch --ratio 1 --eq-profile (3-band APO EQ, "
           f"identity 1025 taps, fft 4096), {seconds:g} s stereo s16: "
           f"{device} vs cpu max {lsb:.0f} LSB (limit 1); fused_frames "
           f"launches {launches}; wall {walls[device]:.2f} s ({device}), "
-          f"{walls['cpu']:.2f} s (cpu); peak level {eq_db:+.2f} dB vs input; "
-          f"512 blocks stereo ratio 1, cold L2: kernel {k_ms:.3f} ms, plain "
-          f"{p_ms:.3f} ms, torch.fft composition {l_ms:.3f} ms (vs plain rel "
-          f"{lib_rel:.3e}); bound {bound[bound_by]:.4f} ms ({bound_by}; "
-          f"operations {bound['operations']:.4f}, bytes "
-          f"{bound['bytes']:.4f}), kernel at "
-          f"{bound[bound_by] / k_ms:.1%} of it on {card}")
-    return launches
+          f"{walls['cpu']:.2f} s (cpu); peak level {eq_db:+.2f} dB vs input "
+          f"on {card}")
+    if device != "cuda":
+        return launches, None
+    reading = ratio1_reading(card, profile)
+    return launches, reading
+
+
+def ratio1_reading(card, profile_path, rng=None) -> dict:
+    """frame_reading of the CLI's ratio-1 geometry (identity 1025 taps, fft
+    4096, the APO EQ at ``profile_path`` baked in), 512 stereo blocks,
+    printed as phase ratio1."""
+    import numpy as np
+    import torch
+
+    (_, cfg, bundle, spec), = [s for s in ratio1_states("cuda", profile_path)
+                               if s[1].taps == 1025]
+    r = frame_reading("ratio 1 (1025, 4096) + APO EQ", cfg, bundle,
+                      torch.complex(spec[0], spec[1]),
+                      rng or np.random.default_rng(2))
+    phase("ratio1", reading_line(r, card))
+    return r
 
 
 def threaded_phase(card, work, device="cuda", seconds=10.0):
@@ -1483,15 +1695,15 @@ def trace_phase(card, work, bundle, cfg, late: bool = False,
     with open(path) as f:
         trace = json.load(f)
     events = trace["traceEvents"]
-    stages = [ev for ev in events if "fft_stage" in str(ev.get("name", ""))
-              and ev.get("cat") == "kernel"]
+    stages = [ev for ev in events if ev.get("cat") == "kernel"
+              and any(k in str(ev.get("name", "")) for k in FRAME_KERNELS)]
     plan = len(ff.flops_per_launch(cfg))
     launches, records, offset = trace_records(path)
     marked = NO_KERNEL_SUFFIX in os.path.basename(path)
     kept = len(stages) == plan
     if not (kept or (late and records == 0 and marked
                      and "tottonKernelRecords" in trace)):
-        raise AssertionError(f"{path}: {len(stages)} fft_stage kernel "
+        raise AssertionError(f"{path}: {len(stages)} frame kernel "
                              f"records, the plan has {plan}; {launches} "
                              f"launches, {records} kernel records, marked "
                              f"{marked}")
@@ -1501,7 +1713,7 @@ def trace_phase(card, work, bundle, cfg, late: bool = False,
           f"{n_frames // 2}-block {cfg.ratio}x/{cfg.taps} stereo dispatch "
           f"{where}: {os.path.basename(path)} {os.path.getsize(path)} "
           f"bytes, {len(events)} events, {launches} launches, "
-          f"{len(stages)} fft_stage kernel records (plan {plan} launches)"
+          f"{len(stages)} frame kernel records (plan {plan} launches)"
           f"{', marked: no kernel record' if marked else ''}, least "
           f"launch-to-kernel offset {offset:.1f} us"
           + (f"; {len(probes)} bare torch.profiler windows: " + "; ".join(
@@ -1757,6 +1969,7 @@ def main() -> int:
         return 1
 
     # 1. The card and the toolchain.
+    started = time.monotonic()
     card = card_line()
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()
@@ -1773,16 +1986,6 @@ def main() -> int:
           f" (nvcc in parallel); built and loaded in "
           f"{time.monotonic() - t0:.2f} s")
 
-    def engine_state(name):
-        lf = load_filter(os.path.join(FILTER_DIR, name + ".json"))
-        cfg = osv.OverlapSaveConfig.from_sidecar(lf.sidecar)
-        spec = osv.filter_spectrum(lf.taps, cfg.fft_size, device=dev)
-        bundle = osv.fold_bundle(spec, cfg)
-        if bundle.absorbed:
-            raise AssertionError(f"{name}: the card folded GW; the kernel "
-                                 "takes the folded G")
-        return lf, cfg, bundle
-
     work = os.path.join(HERE, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
@@ -1792,7 +1995,8 @@ def main() -> int:
     # and the ratio-1 (halves) branch at the same counts and at 1024.
     rng = np.random.default_rng(0)
     main_err = 0.0
-    states = [(name, *engine_state(name)[1:]) for name in PARITY_FILTERS]
+    states = [(name, *engine_state(name, dev)[1:3])
+              for name in PARITY_FILTERS]
     states += ratio1_states(dev, profile)
     for name, cfg, bundle, *_ in states:
         rels = []
@@ -1810,31 +2014,19 @@ def main() -> int:
         del bundle
     del states
 
-    # 4. Kernel vs the float64 oracle at 16x/80k, 32 blocks.
-    lf, cfg, bundle = engine_state(MAIN_FILTER)
-    snr_blocks = 32
-    xs = (rng.normal(size=(1, cfg.halo_in + snr_blocks * cfg.block_in))
-          * 0.3).astype(np.float32)
-    xs_dev = torch.from_numpy(xs).to(dev)
-    up = np.zeros(xs.shape[1] * cfg.ratio)
-    up[::cfg.ratio] = xs[0]
-    n_fft = 1 << int(np.ceil(np.log2(len(up) + cfg.taps - 1)))
-    ref = np.fft.irfft(np.fft.rfft(up, n_fft)
-                       * np.fft.rfft(lf.taps.astype(np.float64), n_fft),
-                       n_fft)[: len(up)]
-    ref = ref[cfg.halo_in * cfg.ratio:]
-
-    def snr(y):
-        y = y.cpu().numpy()[0].astype(np.float64)
-        return 10 * np.log10(np.sum(ref ** 2) / np.sum((y - ref) ** 2))
-
-    snr_db = snr(ff.fused_upsample_blocks(xs_dev, bundle, cfg))
-    plain_db = snr(osv.upsample_blocks(xs_dev, bundle, cfg))
-    phase("snr", f"16x/80k vs float64 oracle, {snr_blocks} blocks: kernel "
-          f"{snr_db:.2f} dB, plain {plain_db:.2f} dB (gate > "
-          f"{SNR_GATE_DB:g})")
-    if not snr_db > SNR_GATE_DB:
-        raise AssertionError(f"SNR {snr_db:.2f} dB below the gate")
+    # 4. Kernel vs the float64 oracle at 16x/80k (three launches) and
+    # 16x/8k (resident), 32 blocks each; the classic odd-overlap program.
+    lf, cfg, bundle, hspec = engine_state(MAIN_FILTER, dev)
+    low_state = engine_state(LOW_FILTER, dev)
+    for name, (f, c, b, _) in ((MAIN_FILTER, (lf, cfg, bundle, hspec)),
+                               (LOW_FILTER, low_state)):
+        k_db, p_db = snr_db(f, c, b, rng)
+        phase("snr", f"{name} ({c.ratio}x, {c.taps} taps) vs float64 oracle,"
+              f" {SNR_BLOCKS} blocks: kernel {k_db:.2f} dB, plain "
+              f"{p_db:.2f} dB (gate > {SNR_GATE_DB:g})")
+        if not k_db > SNR_GATE_DB:
+            raise AssertionError(f"{name}: SNR {k_db:.2f} dB below the gate")
+    classic_phase(card, rng)
 
     # 5. The main path: totton-stream-torch, file mode, 16x/80k stereo s16.
     from totton_tpu_torch.io.wav import read_wav, write_wav
@@ -1881,87 +2073,32 @@ def main() -> int:
         raise AssertionError("jax was imported")
 
     # 6. Kernel vs plain vs the torch.fft composition (library), compared
-    # and timed in turns (kernel, plain, library, library, plain, kernel;
-    # the median of each one's runs), one 16x/80k stereo dispatch, the L2
-    # flushed before every timed run.
-    timings = {}
-    saved = ff.LAUNCHES
-    hspec = torch.fft.rfft(
-        torch.from_numpy(lf.taps.astype(np.float64)).to(dev),
-        n=cfg.fft_size).to(torch.complex64)
-    for blocks in (512, 1024):
-        frames = torch.from_numpy(
-            (rng.normal(size=(2 * blocks, cfg.frame_in)) * 0.3)
-            .astype(np.float32)).to(dev)
-        rel, err = kernel_vs_plain(frames, bundle, cfg)
-        main_err = max(main_err, err)
-        ref = osv.upsample_frames(frames, bundle, cfg)
-        lib_rel = ((library_frames(frames, hspec, cfg) - ref).abs().max()
-                   / ref.abs().max()).item()
-        del ref
-        fns = {"kernel": lambda: ff.fused_upsample_frames(frames, bundle, cfg),
-               "plain": lambda: osv.upsample_frames(frames, bundle, cfg),
-               "library": lambda: library_frames(frames, hspec, cfg)}
-        runs = {k: [] for k in fns}
-        for k in ("kernel", "plain", "library", "library", "plain", "kernel"):
-            runs[k].append(cuda_time_ms(fns[k], reps=5))
-        k_ms, p_ms, l_ms = (min(runs[k]) for k in fns)
-        medians = {k: [round(v, 4) for v in r] for k, r in runs.items()}
-        out_samples = 2 * blocks * cfg.block_size
-        timings[blocks] = (k_ms, p_ms, l_ms)
-        phase("time", f"{blocks} blocks stereo 16x/80k, cold L2: kernel vs "
-              f"plain rel {rel:.3e}, torch.fft composition vs plain rel "
-              f"{lib_rel:.3e}; kernel {k_ms:.3f} ms "
-              f"({out_samples / k_ms / 1e6:.3f} G samples/s), plain "
-              f"{p_ms:.3f} ms, torch.fft composition {l_ms:.3f} ms "
-              f"(the lower of two medians of 5; medians {json.dumps(medians)})"
-              f" on {card}")
-        del frames
-    torch.cuda.empty_cache()
+    # and timed in turns with a cold L2, one 16x/80k stereo dispatch of 512
+    # and of 1024 blocks; the bound; each launch's device time (phase
+    # launches: the three-launch plan), and the same at 16x/8k (the
+    # resident plan, one launch).
+    readings = {blocks: frame_reading("16x/80k", cfg, bundle, hspec, rng,
+                                      blocks, profile=blocks == 512)
+                for blocks in (512, 1024)}
+    for r in readings.values():
+        main_err = max(main_err, r["err"])
+        phase("time", reading_line(r, card))
+    main_r = readings[512]
     n = 2 * 512
-    flops = ff.flops_per_frame(cfg) * n
-    nbytes = ff.bound_bytes(cfg, n)
-    bound, bound_by = kernel_bound_ms(cfg, n)
-    phase("bound", f"512 blocks stereo 16x/80k: {flops / 1e9:.2f} GFLOP "
-          f"({bound['operations']:.4f} ms at {PEAK_FP32_FLOPS / 1e12:g} "
-          f"TFLOP/s fp32), {nbytes / 1e6:.1f} MB each input read and each "
-          f"output written once ({bound['bytes']:.4f} ms at "
-          f"{PEAK_BYTES_S / 1e12:g} TB/s); bound {bound[bound_by]:.4f} ms "
-          f"({bound_by}); kernel at {bound[bound_by] / timings[512][0]:.1%} "
-          f"of it")
-
-    # 7. Device time of each of the kernel's launches, 512 blocks.
-    labels = list(ff.flops_per_launch(cfg))
-    frames = torch.from_numpy(
-        (rng.normal(size=(n, cfg.frame_in)) * 0.3).astype(np.float32)).to(dev)
-    try:
-        per_launch, per_dispatch = launch_times_ms(
-            lambda: ff.fused_upsample_frames(frames, bundle, cfg), labels)
-        why = "the profiler recorded no device time"
-    except RuntimeError as e:  # the profiler, not the kernel, failed
-        per_launch, per_dispatch, why = None, None, f"profiler error: {e}"
-    ff.LAUNCHES = saved
-    del frames
-    if per_launch is None:
-        phase("launches", f"per-launch device time and launches per "
-              f"dispatch: not measured ({why})")
-    else:
-        if per_dispatch != len(labels):
-            raise AssertionError(
-                f"the profiler saw {per_dispatch} kernel launches per "
-                f"dispatch; the stage plan has {len(labels)} ({labels})")
-        fl, by = ff.flops_per_launch(cfg), ff.bytes_per_launch(cfg)
-        parts = [f"{k} {per_launch[k]:.3f} ms "
-                 f"({fl[k] * n / per_launch[k] / 1e9:.1f} TFLOP/s, "
-                 f"{by[k] * n / per_launch[k] / 1e6:.0f} GB/s)"
-                 for k in labels]
-        total = sum(per_launch.values())
-        phase("launches", f"512 blocks stereo 16x/80k, torch.profiler, "
-              f"cold L2: {per_dispatch:g} launches a dispatch; "
-              f"{', '.join(parts)}; sum {total:.3f} ms "
-              f"({ff.flops_per_frame(cfg) * n / total / 1e9:.1f} TFLOP/s, "
-              f"{sum(by.values()) * n / total / 1e6:.0f} GB/s of scratch "
-              f"and frame traffic) on {card}")
+    phase("bound", f"512 blocks stereo 16x/80k: "
+          f"{ff.flops_per_frame(cfg) * n / 1e9:.2f} GFLOP "
+          f"({main_r['bound']['operations']:.4f} ms at "
+          f"{PEAK_FP32_FLOPS / 1e12:g} TFLOP/s fp32), "
+          f"{ff.bound_bytes(cfg, n) / 1e6:.1f} MB each input read and each "
+          f"output written once ({main_r['bound']['bytes']:.4f} ms at "
+          f"{PEAK_BYTES_S / 1e12:g} TB/s); bound "
+          f"{main_r['bound'][main_r['bound_by']]:.4f} ms "
+          f"({main_r['bound_by']}); kernel at "
+          f"{main_r['bound'][main_r['bound_by']] / main_r['ms']['kernel']:.1%}"
+          f" of it")
+    low_r = frame_reading("16x/8k", *low_state[1:], rng)
+    phase("time-8k", reading_line(low_r, card))
+    del low_state
 
     # 7b. trace_context around one 512-block dispatch (the sharded phase's
     # sub-step f), early: late in the process torch.profiler drops the
@@ -1982,14 +2119,13 @@ def main() -> int:
 
     # 9. The low-latency bank (16x/8k), device PCM, twelve concurrent 2 s
     # s16 streams on 16 slots (so the 8- and 16-slot widths both run).
-    low = load_filter(os.path.join(FILTER_DIR,
-                                   "filter_44k_16x_8000_min_phase.json"))
+    low = load_filter(os.path.join(FILTER_DIR, LOW_FILTER + ".json"))
     low_launches = serve_low_phase(card, low, "cuda", work)
     torch.cuda.empty_cache()
 
     # 10. Ratio 1 (the kernel's halves branch) through the CLI, EQ only,
     # and the time-domain EQ cascade on its own kernel.
-    r1_launches = ratio1_phase(card, work)
+    r1_launches, r1 = ratio1_phase(card, work)
     iir_entry = iir_phase(card)
     # 11. The threaded session in file mode, 16x/80k.
     th_launches = threaded_phase(card, work)
@@ -2007,6 +2143,7 @@ def main() -> int:
     trace_phase(card, work, bundle, cfg, late=True)
     shutil.rmtree(work, ignore_errors=True)
 
+    phase("done", f"every phase passed in {time.monotonic() - started:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "fused_frames",
         "route": "cuda",
@@ -2015,13 +2152,15 @@ def main() -> int:
         "launches": (launches + serve_launches + low_launches + r1_launches
                      + th_launches + cf_launches + live_launches
                      + sh_launches),
-        "launches_per_dispatch": per_dispatch,
+        "launches_per_dispatch": main_r["per_dispatch"],
         "max_abs_err": main_err,
-        "ms": timings[512][0],
-        "plain_ms": timings[512][1],
-        "bound_ms": bound[bound_by],
-        "bound_by": bound_by,
-        "library_ms": timings[512][2],
+        "ms": main_r["ms"]["kernel"],
+        "plain_ms": main_r["ms"]["plain"],
+        "bound_ms": main_r["bound"][main_r["bound_by"]],
+        "bound_by": main_r["bound_by"],
+        "library_ms": main_r["ms"]["library"],
+        "ratio1": reading_entry(r1),
+        "16x_8k": reading_entry(low_r),
     }, iir_entry]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -2030,5 +2169,41 @@ def main() -> int:
     return 0
 
 
+def frames_main(root: str) -> int:
+    """``python3 chip_smoke.py --frames ROOT``: the frame kernel of the
+    checkout at ROOT (its package and kernel sources, built into its own
+    build directory; e.g. a parent commit unpacked under build/) timed by
+    frame_reading at 512 stereo blocks of ratio 1 (1025, 4096) with the
+    APO EQ, 16x/8k and 16x/80k, so that two versions can be run in turns
+    in one call on one card. Prints one phase line each and a JSON line
+    of the three."""
+    sys.path.insert(0, os.path.abspath(root))
+    import numpy as np
+    import torch
+
+    import totton_tpu_torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 1
+    card = card_line()
+    work = os.path.join(HERE, "build", "chip_smoke_frames")
+    os.makedirs(work, exist_ok=True)
+    package = os.path.dirname(os.path.abspath(totton_tpu_torch.__file__))
+    rng = np.random.default_rng(7)
+    readings = {"ratio1": ratio1_reading(card, write_profile(work), rng)}
+    for key, name in (("16x_8k", LOW_FILTER), ("16x_80k", MAIN_FILTER)):
+        r = frame_reading(name, *engine_state(name, "cuda")[1:], rng)
+        phase("frames", reading_line(r, card))
+        readings[key] = r
+    no_jax()
+    print(json.dumps({"package": package, "card": card, **{
+        k: reading_entry(r) for k, r in readings.items()}}))
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--frames"] and len(sys.argv) == 3:
+        sys.exit(frames_main(sys.argv[2]))
     sys.exit(main())

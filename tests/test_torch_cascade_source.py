@@ -1,84 +1,25 @@
 """The EQ cascade's CUDA source, run on the CPU: ``csrc/biquad_cascade.cu``
-is compiled with g++ against a small ``cuda_runtime.h`` written here, in
-which each lane of a block is a ``std::thread`` (``threadIdx`` and
-``blockIdx`` thread-local, ``__syncwarp`` a ``std::barrier``, a
-``__shared__`` array one static buffer, since the launch runs its blocks
-one after another) and ``__fmaf_rn`` is ``std::fmaf``. The kernel uses no
-warp shuffle, so the header emulates none. The library is driven through
-the wrapper's own launch loop (``eq.iir._launch``: groups of
-``MAX_BANDS`` bands, later groups in place) on CPU tensors and held
-against ``cascade_plain`` bit for bit, with a carried state."""
+is compiled with g++ against the small ``cuda_runtime.h`` of
+``torch_cuda_shim`` (each lane of a block a ``std::thread``,
+``__syncwarp`` a ``std::barrier``, ``__fmaf_rn`` ``std::fmaf``). The
+library is driven through the wrapper's own launch loop
+(``eq.iir._launch``: groups of ``MAX_BANDS`` bands, later groups in
+place) on CPU tensors and held against ``cascade_plain`` bit for bit,
+with a carried state."""
 
-import ctypes
-import re
-import shutil
-import subprocess
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+from torch_cuda_shim import build_library
 from totton_tpu_torch.eq import iir
 from totton_tpu_torch.eq.apo import parse_eq_string
 
 torch.set_num_threads(2)
 
 SOURCE = Path(iir.__file__).resolve().parents[1] / "csrc" / "biquad_cascade.cu"
-
-SHIM = r"""
-#pragma once
-#include <barrier>
-#include <cmath>
-#include <cstddef>
-#include <thread>
-#include <vector>
-
-#define __global__
-#define __device__
-#define __forceinline__ inline
-#define __restrict__ __restrict
-#define __launch_bounds__(...)
-#define __shared__ static
-
-struct shim_dim3 { unsigned x = 0, y = 0, z = 0; };
-inline thread_local shim_dim3 threadIdx, blockIdx;
-inline thread_local std::barrier<>* shim_block_barrier = nullptr;
-
-using cudaStream_t = void*;
-enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
-inline cudaError_t cudaGetLastError() { return cudaSuccess; }
-inline const char* cudaGetErrorString(cudaError_t e) {
-  return e == cudaSuccess ? "no error" : "invalid argument";
-}
-
-inline void __syncwarp(unsigned = 0xffffffffu) {
-  shim_block_barrier->arrive_and_wait();
-}
-inline void __syncthreads() { shim_block_barrier->arrive_and_wait(); }
-inline float __fmaf_rn(float a, float b, float c) { return std::fmaf(a, b, c); }
-inline float __fmul_rn(float a, float b) { return a * b; }
-inline float __fadd_rn(float a, float b) { return a + b; }
-
-// kernel<<<grid, block, smem, stream>>>(args...), one block at a time.
-template <class K, class... A>
-void shim_launch(unsigned grid, unsigned block, std::size_t, cudaStream_t,
-                 K kernel, A... args) {
-  for (unsigned b = 0; b < grid; ++b) {
-    std::barrier<> bar(block);
-    std::vector<std::thread> lanes;
-    for (unsigned t = 0; t < block; ++t) {
-      lanes.emplace_back([&, t] {
-        threadIdx.x = t;
-        blockIdx.x = b;
-        shim_block_barrier = &bar;
-        kernel(args...);
-      });
-    }
-    for (auto& lane : lanes) lane.join();
-  }
-}
-"""
 
 FS = 44100.0
 #: Forty PK, LS and HS bands at 44.1 kHz: the first ten an APO headphone
@@ -105,23 +46,8 @@ def _profile_text(bands: int) -> str:
 
 @pytest.fixture(scope="module")
 def shim_lib(tmp_path_factory):
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ to build the kernel source on the CPU")
-    d = tmp_path_factory.mktemp("cascade_source")
-    (d / "cuda_runtime.h").write_text(SHIM)
-    src = re.sub(r"(\w+)<<<(.*?)>>>\(", r"shim_launch(\2, \1, ",
-                 SOURCE.read_text(), flags=re.S)
-    assert "shim_launch(" in src, "the source's launch was not found"
-    (d / "biquad_cascade.cpp").write_text(src)
-    lib = d / "libbiquad_cascade_cpu.so"
-    proc = subprocess.run(
-        [gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
-         "-pthread", "-I", str(d), "-o", str(lib),
-         str(d / "biquad_cascade.cpp")],
-        capture_output=True, text=True)
-    assert proc.returncode == 0, proc.stderr
-    return iir._bind(ctypes.CDLL(str(lib)))
+    return iir._bind(build_library(SOURCE,
+                                   tmp_path_factory.mktemp("cascade_source")))
 
 
 def _inputs(bands: int, n: int):

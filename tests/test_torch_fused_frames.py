@@ -2,14 +2,17 @@
 
 On the CPU the wrapper runs the plain version: it is checked against the
 JAX Pallas kernel in interpret mode on tests/test_pallas.py's geometries.
-The CUDA kernel cannot run here, so its stage plan — the kernel_plan
-splits, the loaders' and stores' index maps, the twiddle tables, the
-pruned columns and the interleaved store of csrc/fused_frames.cu — is
-replayed in torch (each short transform by a DFT) and held against the
-plain version, and its Stockham pass sequence is replayed in numpy with
-the kernel's own twiddle tables and held against numpy's FFT. The kernel
-itself is compared with the plain version on the card by the tests
-marked ``cuda`` (and by chip_smoke.py).
+The CUDA kernel cannot run on the card here, so its plan — the
+kernel_plan splits, the loaders' and stores' index maps, the resident
+plan's half spectrum, the twiddle tables, the pruned columns and the
+interleaved store of csrc/fused_frames.cu — is replayed in torch (each
+short transform by a DFT, the resident plan's whole-frame transforms by
+torch.fft in float64) and held against the plain version, and its
+Stockham pass sequence is replayed in numpy with the kernel's own twiddle
+tables and held against numpy's FFT. The kernel source itself runs on the
+CPU in tests/test_torch_fused_frames_source.py; it is compared with the
+plain version on the card by the tests marked ``cuda`` (and by
+chip_smoke.py).
 """
 
 import glob
@@ -31,9 +34,13 @@ from totton_tpu_torch.ops import overlap_save as tos
 
 torch.set_num_threads(2)
 
+# Every one resident (h <= 8192), the 8k bank's 16x and 2x among them.
 PALLAS_GEOMETRIES = [(257, 2048, 4), (1025, 4096, 2), (1025, 8192, 16),
-                     (129, 1024, 1), (1025, 8192, 8)]
-KERNEL_GEOMETRIES = PALLAS_GEOMETRIES
+                     (129, 1024, 1), (1025, 8192, 8), (8001, 16384, 16),
+                     (8001, 16384, 2)]
+# Two three-launch geometries at a small size (h = 16384): the fused
+# forward at 16x, the four-step forward with the ratio-1 halves.
+KERNEL_GEOMETRIES = PALLAS_GEOMETRIES + [(2049, 32768, 16), (1025, 32768, 1)]
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # Tolerances: the replays run in float64 against the float32 plain
 # version, whose rounding (summation order over up to 512-point stages)
@@ -63,12 +70,55 @@ def _table(v: torch.Tensor) -> torch.Tensor:
     return torch.complex(v[..., 0].double(), v[..., 1].double())
 
 
+def emulate_resident(frames: np.ndarray, bundle, cfg) -> np.ndarray:
+    """torch replay of the resident launch (fft_resident): the m/2-point
+    FFT of the packed frame (torch.fft, float64), the pair untangle into
+    the M + 1 slots X[0 .. M - 1] and conj(X[M]), Z read from the slots by
+    the kernel's index maps, the h-point inverse, and the store of j >= j0
+    interleaved. NaN marks an output sample the store never writes."""
+    pl = ff.kernel_plan(cfg)
+    tabs = {k: _table(v) for k, v in ff.kernel_consts(cfg, "cpu").items()}
+    n = frames.shape[0]
+    m, h, j0 = pl["m"], pl["h"], pl["j0"]
+    half = m // 2
+    x = torch.from_numpy(frames).to(torch.complex128)
+    zf = torch.fft.fft(x[:, 0::2] + 1j * x[:, 1::2])
+    wm = tabs["tw_fwd"][half - 8:]  # after the forward's pass tables
+
+    def untangle(z, zr, w):
+        return (1 - 1j * w) / 2 * z + (1 + 1j * w) / 2 * zr.conj()
+
+    k = torch.arange(half)
+    slots = torch.cat([untangle(zf, zf[:, (half - k) % half], wm[k]),
+                       untangle(zf[:, :1], zf[:, :1], wm[half:]).conj()], -1)
+    g = _table(bundle.weights).reshape(-1)
+    k = torch.arange(h)
+    if pl["halves"]:
+        hi = torch.where(k == 0, h, h - k)
+        upper = slots[:, hi]
+        upper[:, 1:] = upper[:, 1:].conj()
+        z = slots[:, k] * g[k] + upper * g[k + h]
+    else:
+        j = k % m
+        z = torch.where(j <= half, slots[:, torch.where(j <= half, j, 0)],
+                        slots[:, torch.where(j > half, m - j, 0)].conj())
+        z = z * g[k]
+    zz = (torch.fft.ifft(z) * h).numpy()
+    out = np.full((n, pl["block"]), np.nan)
+    out[:, 0::2] = zz[:, j0:].real
+    out[:, 1::2] = zz[:, j0:].imag
+    return out
+
+
 def emulate_kernel(frames: np.ndarray, bundle, cfg) -> np.ndarray:
     """torch replay of csrc/fused_frames.cu's launches with the plan's
     splits, the loaders' and stores' index maps and the wrapper's twiddle
-    tables; each short transform is a DFT. NaN marks an output sample the
-    stores never write."""
+    tables; each short transform is a DFT (the resident plan:
+    ``emulate_resident``). NaN marks an output sample the stores never
+    write."""
     pl = ff.kernel_plan(cfg)
+    if pl["resident"]:
+        return emulate_resident(frames, bundle, cfg)
     tabs = {k: _table(v) for k, v in ff.kernel_consts(cfg, "cpu").items()}
     n = frames.shape[0]
     m, h, p2, q2 = pl["m"], pl["h"], pl["P2"], pl["Q2"]
@@ -117,23 +167,32 @@ def emulate_kernel(frames: np.ndarray, bundle, cfg) -> np.ndarray:
     return out
 
 
-def _stockham(x: np.ndarray, inverse: bool) -> np.ndarray:
-    """csrc/fused_frames.cu's fft_passes replayed on one transform: radix
-    8 while N/NS >= 8, then one radix 2 or 4; twiddles from the wrapper's
-    forward W_N^e table (conjugated for the inverse)."""
+def _stockham(x: np.ndarray, inverse: bool, per_pass: bool = False,
+              v: int = 8) -> np.ndarray:
+    """csrc/fused_frames.cu's fft_passes replayed on one transform at
+    ``v`` values a thread: radix 8 while N/NS >= 8, then one radix 2 or 4
+    (or, at v = 16, a last radix 16); twiddles from the wrapper's forward
+    W_N^e table (fft_stage's WholeTable) or, ``per_pass``, from its
+    per-pass tables (fft_resident's PassTables), conjugated for the
+    inverse."""
     n = len(x)
-    re, im = ff._fwd_table(n)
+    re, im = ff._pass_table(n, v) if per_pass else ff._fwd_table(n)
     tw = re.astype(np.float64) + 1j * im.astype(np.float64)
     if inverse:
         tw = tw.conj()
     d = x.astype(np.complex128)
-    ns = 1
-    while ns < n:
-        r = 8 if n // ns >= 8 else n // ns
+    ns, base = 1, 0
+    for r in ff._radices(n, v):
         j = np.arange(n // r)
         k = j % ns
         v = np.stack([d[j + q * (n // r)] for q in range(r)])     # [r, n/r]
-        v = v * tw[(k[None] * np.arange(r)[:, None] * (n // (ns * r)))]
+        q = np.arange(r)[:, None]
+        if per_pass:
+            at = base + np.maximum(q - 1, 0) * ns + k[None]
+            base += (r - 1) * ns if ns > 1 else 0
+        else:
+            at = k[None] * q * (n // (ns * r))
+        v = v * np.where((q > 0) & (ns > 1), tw[at], 1.0)
         w = np.exp((2j if inverse else -2j) * np.pi
                    * np.outer(np.arange(r), np.arange(r)) / r)
         v = w @ v                                                 # DFT_r
@@ -198,12 +257,13 @@ def _eq_response(tmp_path, fft):
     return resolve_eq_response(str(path), None, fft, 44100)[0]
 
 
-# The five geometries chip_smoke.py holds the kernel to on the card:
-# 16x/80k (fused forward), 2x/80k (two-launch forward), 16x/8k, and ratio
-# 1 at (129, 1024) and the CLI's identity (1025, 4096) with an APO EQ.
+# The six geometries chip_smoke.py holds the kernel to on the card:
+# 16x/80k (fused forward), 2x/80k (two-launch forward), and on the
+# resident plan 16x/8k, 2x/8k (its largest frame) and ratio 1 at (129,
+# 1024) and the CLI's identity (1025, 4096) with an APO EQ.
 CHIP_GEOMETRIES = [(80001, 131072, 16, False), (80001, 131072, 2, False),
                    (8001, 16384, 16, False), (129, 1024, 1, False),
-                   (1025, 4096, 1, True)]
+                   (1025, 4096, 1, True), (8001, 16384, 2, False)]
 
 
 @pytest.mark.parametrize("taps,fft,ratio,eq", CHIP_GEOMETRIES)
@@ -238,6 +298,36 @@ def test_stockham_passes_match_dft(rng, n, inverse):
     x = rng.normal(size=n) + 1j * rng.normal(size=n)
     ref = np.fft.ifft(x) * n if inverse else np.fft.fft(x)
     assert _rel(_stockham(x, inverse), ref) < 1e-6
+
+
+@pytest.mark.parametrize("n", [16, 32, 64, 128, 256, 512, 1024, 2048, 4096,
+                               8192])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_stockham_pass_tables_match_dft(rng, n, inverse):
+    """The resident kernel's FFT with its per-pass twiddle tables: the
+    same floats as the whole table's, so the same result bit for bit, and
+    numpy's FFT within the float32 tables' rounding."""
+    x = rng.normal(size=n) + 1j * rng.normal(size=n)
+    ref = np.fft.ifft(x) * n if inverse else np.fft.fft(x)
+    got = _stockham(x, inverse, per_pass=True)
+    assert np.array_equal(got, _stockham(x, inverse))
+    assert _rel(got, ref) < 1e-6
+    assert len(ff._pass_table(n)[0]) == n - 8
+
+
+@pytest.mark.parametrize("n,radices", [
+    (256, [8, 8, 4]), (512, [8, 8, 8]), (1024, [8, 8, 16]),
+    (2048, [8, 8, 8, 4]), (4096, [8, 8, 8, 8]), (8192, [8, 8, 8, 16])])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_stockham_sixteen_values_a_thread(rng, n, radices, inverse):
+    """At 16 values a thread (the resident kernel from h = 4096) a last
+    16 points run as one radix-16 pass: its 4 x 4 butterfly, pass plan and
+    per-pass tables against numpy's FFT."""
+    assert ff._radices(n, 16) == radices
+    x = rng.normal(size=n) + 1j * rng.normal(size=n)
+    ref = np.fft.ifft(x) * n if inverse else np.fft.fft(x)
+    assert _rel(_stockham(x, inverse, per_pass=True, v=16), ref) < 1e-6
+    assert len(ff._pass_table(n, 16)[0]) == n - 8
 
 
 @pytest.mark.parametrize("taps,fft", [(80001, 131072), (8001, 16384)])
@@ -280,10 +370,23 @@ def test_fold_bundle_on_cuda_builds_g_not_gw():
             (2, fft // 2, 2) if ratio == 1 else (fft // 2, 2))
 
 
+def _resident_smem(plan) -> int:
+    """fft_resident's shared memory (its Resident<M, H>::SMEM): TB frames
+    a block (below h = 4096), XN >= m/2 + 1 slots of X and h of Z a frame,
+    one pad float2 after every 8."""
+    tb = max(1, 4096 // plan["h"])
+    n = (plan["m"] // 2 + (1 if tb >= 8 else 8 // tb) + plan["h"]) * tb
+    return (n + n // 8) * 8
+
+
 def test_every_shipped_sidecar_is_in_the_kernel_envelope():
+    """The 16 sidecars of the 8k bank (fft 16384) take the resident plan,
+    one launch with the frame in 227 KB of shared memory; the 16 of the
+    80k bank keep the three-launch plan."""
     paths = sorted(glob.glob(os.path.join(REPO, "data", "coefficients",
                                           "filter_*.json")))
     assert len(paths) == 32
+    resident = []
     for path in paths:
         with open(path) as f:
             meta = json.load(f)
@@ -291,12 +394,20 @@ def test_every_shipped_sidecar_is_in_the_kernel_envelope():
                                     meta["block_size"],
                                     meta["upsample_factor"])
         plan = ff.kernel_plan(cfg)
+        assert plan["resident"] == (meta["fft_size"] <= 16384), path
+        if plan["resident"]:
+            resident.append(os.path.basename(path))
+            assert _resident_smem(plan) <= 227 * 1024, path
+            assert plan["block"] == 2 * (plan["h"] - plan["j0"]), path
+            continue
         assert plan["fused"] == (plan["m"] <= ff.FUSED_MAX), path
         stages = [plan["P2"], plan["Q2"]]
         if not plan["fused"]:
             stages += [plan["P"], plan["Q"]]
         assert all(ff.STAGE_MIN <= s <= ff.STAGE_MAX for s in stages), path
         assert plan["kept"] * plan["P2"] >= cfg.block_size // 2, path
+    assert len(resident) == 16
+    assert all("_8000_" in name for name in resident)
 
 
 @pytest.mark.parametrize("taps,fft", [(130, 1024), (1024, 4096)])
@@ -311,13 +422,23 @@ def test_kernel_refuses_odd_overlap(taps, fft):
 def test_ratio_one_plan_reads_both_halves():
     _, cfg = _cfgs(1025, 4096, 1)
     pl = ff.kernel_plan(cfg)
-    assert pl["halves"] and pl["fused"]
-    assert (pl["m"], pl["h"], pl["P2"], pl["Q2"]) == (4096, 2048, 64, 32)
-    # Two complex multiplies and an add per bin (14 FLOP), 32 inverse
-    # 64-point FFTs (two radix-8 passes: 8 x 56 + 8 x (56 + 7 x 6) = 1232
-    # FLOP) and the twiddle.
-    assert ff.flops_per_launch(cfg)["I1"] == 14 * 2048 + 32 * 1232 \
-        + 6 * 2048
+    assert pl["halves"] and pl["resident"]
+    assert (pl["m"], pl["h"], pl["j0"], pl["block"]) == (4096, 2048, 512,
+                                                         3072)
+    # One launch: the 2048-point forward (three radix-8 passes and one
+    # radix-4: 81920 FLOP) and its 2049 untangled bins (14 FLOP each),
+    # two complex multiplies and an add per bin (14 FLOP), the 2048-point
+    # inverse.
+    assert ff.flops_per_launch(cfg) == {
+        "R": 81920 + 14 * 2049 + 14 * 2048 + 81920}
+    # At h = 16384 ratio 1 keeps three launches, I1 summing the halves:
+    # 128 inverse 128-point FFTs (two radix-8 passes and a radix-2).
+    _, cfg = _cfgs(1025, 32768, 1)
+    pl = ff.kernel_plan(cfg)
+    assert pl["halves"] and not pl["resident"]
+    assert (pl["P2"], pl["Q2"]) == (128, 128)
+    assert ff.flops_per_launch(cfg)["I1"] == 14 * 16384 \
+        + 128 * ff._fft_flops(128) + 6 * 16384
 
 
 def test_flops_per_output_sample_production_16x():
@@ -354,6 +475,16 @@ def test_fft_flops_follow_the_pass_plan(n, flops):
     assert ff._fft_flops(n) == flops
 
 
+def test_fft_flops_radix_sixteen():
+    """8192 points at 16 values a thread: three radix-8 passes and one
+    radix-16 (168 FLOP a butterfly and 15 twiddle products), against five
+    passes (the fifth radix 2) at 8."""
+    assert ff._fft_flops(8192, 16) == (1024 * 56 + 2 * 1024 * (56 + 42)
+                                       + 512 * (168 + 15 * 6))
+    assert ff._fft_flops(8192) == (1024 * 56 + 3 * 1024 * (56 + 42)
+                                   + 4096 * (4 + 6))
+
+
 @pytest.mark.parametrize("ratio,launches", [
     (16, ["F", "I1", "I2"]), (2, ["F1", "F2", "I1", "I2"])])
 def test_flops_per_launch_sum_to_frame(ratio, launches):
@@ -362,6 +493,49 @@ def test_flops_per_launch_sum_to_frame(ratio, launches):
     assert sorted(per_launch) == launches
     assert sorted(ff.bytes_per_launch(cfg)) == launches
     assert sum(per_launch.values()) == ff.flops_per_frame(cfg)
+
+
+@pytest.mark.parametrize("taps,fft,ratio", [(8001, 16384, 16),
+                                             (8001, 16384, 2),
+                                             (1025, 4096, 1)])
+def test_resident_plan_is_one_launch(taps, fft, ratio):
+    """The resident plan's one launch R: its FLOPs are the frame's; its
+    bytes a frame read once and a block written once, so the bound's
+    bytes are the frames' and blocks' plus G and the two tables."""
+    _, cfg = _cfgs(taps, fft, ratio)
+    pl = ff.kernel_plan(cfg)
+    m, h, half = pl["m"], pl["h"], pl["m"] // 2
+    assert pl["resident"]
+    v = 16 if h >= 4096 else 8  # values a thread a pass
+    assert pl["v"] == v
+    assert ff.flops_per_launch(cfg) == {"R": ff.flops_per_frame(cfg)}
+    assert ff.flops_per_frame(cfg) == (
+        ff._fft_flops(half, v) + 14 * (half + 1)
+        + (14 if ratio == 1 else 6) * h + ff._fft_flops(h, v))
+    assert ff.bytes_per_launch(cfg) == {"R": 4 * m + 4 * cfg.block_size}
+    consts = ff.kernel_consts(cfg, "cpu")
+    assert sorted(consts) == ["tw_fwd", "tw_inv"]
+    assert tuple(consts["tw_fwd"].shape) == (half - 8 + half + 1, 2)
+    assert tuple(consts["tw_inv"].shape) == (h - 8, 2)
+    assert ff.bound_bytes(cfg, 1024) == (
+        1024 * 4 * (m + cfg.block_size) + 8 * h * (2 if ratio == 1 else 1)
+        + 8 * (2 * half - 7 + h - 8))
+
+
+@pytest.mark.parametrize("ratio", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("h", [256, 8192])
+def test_resident_envelope(h, ratio):
+    """Every ratio of the CLIs at the envelope's edges (h = 256 and 8192)
+    is resident, its frame within a block's 227 KB of shared memory;
+    h = 16384, and ratio 32, keep three launches."""
+    def plan(h, ratio):
+        return ff.kernel_plan(_cfgs(h // 2 + 1, 2 * h, ratio)[1])
+
+    pl = plan(h, ratio)
+    assert pl["resident"] and pl["m"] == 2 * h // ratio
+    assert _resident_smem(pl) <= 227 * 1024
+    assert not plan(16384, ratio)["resident"]
+    assert not plan(8192, 32)["resident"]
 
 
 def test_bound_bytes_production_16x():
@@ -385,6 +559,7 @@ CUDA_FRAME_COUNTS = [2, 16, 18, 64, 128, 1024]
 @pytest.mark.parametrize("name", ["filter_44k_16x_80000_min_phase",
                                   "filter_44k_2x_80000_min_phase",
                                   "filter_44k_16x_8000_min_phase",
+                                  "filter_44k_2x_8000_min_phase",
                                   "ratio1_1025_4096"])
 def test_cuda_kernel_matches_plain(name, n_frames):
     if not torch.cuda.is_available():
