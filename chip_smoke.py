@@ -3,16 +3,18 @@
 
 Builds the port's CUDA frame kernel from this checkout's sources, checks it
 against its plain torch version (at every frame count the main path gives
-it, on its three-launch plan (the 80k bank) and its resident one-launch
-plan (the 8k bank, ratio 1)) and against a float64 oracle (16x/80k and
-16x/8k), checks the classic odd-overlap program on the card, drives the
-port's main path (``totton-stream-torch`` file mode, 16x / 80001 taps,
-stereo s16, the bundled filter) through the kernel, times the kernel
-against its plain version and the same function composed of ``torch.fft``
-calls (cuFFT, the yardstick ``library_ms``) with a cold L2 at 16x/80k,
-16x/8k and ratio 1, computes the kernel's bound from its work, times each
-of its launches (and fails if a dispatch launches other than its plan's
-count), serves concurrent client streams
+it, at every geometry the CLIs serve: 2x, 4x, 8x and 16x on its
+three-launch plan (the 80k bank) and its resident one-launch plan (the 8k
+bank), and ratio 1) and against a float64 oracle (the eight served
+geometries), checks the classic odd-overlap program on the card, drives
+the port's main path (``totton-stream-torch`` file mode, 16x / 80001 taps,
+stereo s16, the bundled filter) through the kernel, and the CLI at 4x, 8x
+and 8x low latency from 48 kHz (against the same command on the CPU),
+times the kernel against its plain version and the same function composed
+of ``torch.fft`` calls (cuFFT, the yardstick ``library_ms``) with a cold
+L2 at the eight served geometries and ratio 1, computes the kernel's bound
+from its work, times each of its launches (and fails if a dispatch
+launches other than its plan's count), serves concurrent client streams
 through the port's ``StreamServer`` (16x/80k f32 with a live filter swap;
 the 16x/8k bank with device PCM and s16 clients) against the offline
 kernel output, runs the kernel's ratio-1 branch through the CLI's EQ-only
@@ -56,13 +58,23 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
 FILTER_DIR = os.path.join(HERE, "data", "coefficients")
-MAIN_FILTER = "filter_44k_16x_80000_min_phase"
+# Every geometry the CLIs serve (--ratio 2, 4, 8, 16 at --latency normal,
+# the 80k bank, and low, the 8k bank), as the bank's 44.1k min-phase
+# filter, keyed as the kernels line keys its readings: three-launch plans
+# (the fused forward at 16x and 8x, the four-step forward at 4x and 2x),
+# then resident ones (2x/8k is the resident plan's largest frame). The 48k
+# family and the linear-phase filters add no geometry
+# (tests/test_torch_chip_geometries.py).
+SERVED = {f"{r}x_{k}k": f"filter_44k_{r}x_{k}000_min_phase"
+          for k in (80, 8) for r in (16, 8, 4, 2)}
+PARITY_FILTERS = tuple(SERVED.values())
+MAIN_FILTER = SERVED["16x_80k"]
 # The low-latency bank's 16x filter: the frame kernel's resident plan.
-LOW_FILTER = "filter_44k_16x_8000_min_phase"
-# Three-launch plans (fused and four-step forward), then resident ones:
-# 2x/8k is the resident plan's largest frame.
-PARITY_FILTERS = (MAIN_FILTER, "filter_44k_2x_80000_min_phase", LOW_FILTER,
-                  "filter_44k_2x_8000_min_phase")
+LOW_FILTER = SERVED["16x_8k"]
+# The CLI in file mode at the served ratios the main path does not run
+# (input rate, --ratio, --latency): 4x and 8x from 44.1 kHz on the 80k
+# bank, 8x from 48 kHz on the 8k bank (the 48k family, by auto lookup).
+CLI_RATIOS = ((44100, 4, "normal"), (44100, 8, "normal"), (48000, 8, "low"))
 REL_TOL = 1e-5       # kernel vs plain on the card (fp32, other sum order)
 SNR_GATE_DB = 125.0  # vs the float64 oracle (bench.py's gate)
 SNR_BLOCKS = 32      # blocks of one channel against the oracle
@@ -318,17 +330,16 @@ def library_frames(frames, hspec, cfg):
     return torch.fft.irfft(x * hspec, n=cfg.fft_size)[..., cfg.overlap:]
 
 
-def frame_reading(label, cfg, bundle, hspec, rng, blocks=512,
-                  profile=True) -> dict:
+def frame_reading(label, cfg, bundle, hspec, rng, blocks=512) -> dict:
     """One stereo dispatch of ``blocks`` blocks (2 x blocks frames) of
     ``cfg`` on the card: kernel vs plain (rel) and the torch.fft
     composition vs plain; the three timed in turns (kernel, plain,
     library, library, plain, kernel; the lower of each one's two medians
     of 5), the L2 flushed before every run; the wrapper's host time to
     enqueue the kernel (the median of 21 calls on an idle card); the
-    bound; with ``profile``,
-    each launch's device ms and the launches a dispatch (torch.profiler),
-    which must equal the plan's (``flops_per_launch``) or the run fails.
+    bound; each launch's device ms and the launches a dispatch
+    (torch.profiler), which must equal the plan's (``flops_per_launch``)
+    or the run fails.
     Leaves fused_frames.LAUNCHES as it found it."""
     import numpy as np
     import torch
@@ -362,13 +373,11 @@ def frame_reading(label, cfg, bundle, hspec, rng, blocks=512,
     bound, bound_by = kernel_bound_ms(cfg, n)
     labels = list(ff.flops_per_launch(cfg))
     per_launch = per_dispatch = None
-    why = "not profiled"
-    if profile:
-        try:
-            per_launch, per_dispatch = launch_times_ms(fns["kernel"])
-            why = "the profiler recorded no device time"
-        except RuntimeError as e:  # the profiler, not the kernel, failed
-            why = f"profiler error: {e}"
+    why = "the profiler recorded no device time"
+    try:
+        per_launch, per_dispatch = launch_times_ms(fns["kernel"])
+    except RuntimeError as e:  # the profiler, not the kernel, failed
+        why = f"profiler error: {e}"
     ff.LAUNCHES = saved
     del frames
     if per_dispatch is not None and (per_dispatch != len(labels)
@@ -979,6 +988,69 @@ def ratio1_reading(card, profile_path, rng=None) -> dict:
                       rng or np.random.default_rng(2))
     phase("ratio1", reading_line(r, card))
     return r
+
+
+def ratios_phase(card, work, device="cuda", seconds=10.0, cpu_seconds=2.0):
+    """totton-stream-torch file mode, stereo s16, at each of CLI_RATIOS
+    (the filter by auto lookup): ``seconds`` of a sine on ``device``
+    through validate_audio, and its first ``cpu_seconds`` against the same
+    command on the CPU over those seconds of input (<= 1 LSB). Returns the
+    launches on ``device``."""
+    import numpy as np
+
+    from totton_tpu_torch.engine.selector import resolve_filter_path
+    from totton_tpu_torch.io.wav import read_wav, write_wav
+    from totton_tpu_torch.testing.signals import sine
+    from totton_tpu_torch.testing.validate_output import validate_audio
+
+    total = 0
+    for fs, ratio, latency in CLI_RATIOS:
+        chosen = os.path.basename(resolve_filter_path(
+            None, FILTER_DIR, "min", ratio, fs, latency))
+        x = sine(1000.0, seconds, fs, amplitude=0.5, channels=2)
+        keep = int(cpu_seconds * fs)
+        outs, walls, launches = {}, {}, 0
+        for run, dev, signal in (("run", device, x), ("cpu", "cpu",
+                                                      x[:, :keep])):
+            in_path = os.path.join(work, f"ratios_{run}_in.wav")
+            out_path = os.path.join(work, f"ratios_{run}_out.wav")
+            write_wav(in_path, signal, fs)
+            t0 = time.monotonic()
+            rc, n, _ = run_cli(["--in", in_path, "--out", out_path,
+                                "--ratio", str(ratio), "--latency", latency,
+                                "--filter-dir", FILTER_DIR, "--format", "s16",
+                                "--device", dev])
+            walls[run] = time.monotonic() - t0
+            if rc != 0:
+                raise AssertionError(f"--ratio {ratio} --latency {latency} "
+                                     f"at {fs} Hz on {dev} exited {rc}")
+            if run == "run":
+                launches = n
+            outs[run], rate = read_wav(out_path)
+            if rate != fs * ratio:
+                raise AssertionError(f"--ratio {ratio} on {dev}: {rate} Hz")
+        y = outs["run"]
+        report = validate_audio(x, y, output_ratio=ratio)
+        lsb = max_lsb(y[:, :keep * ratio], outs["cpu"])
+        if not (report["passed"] and y.shape == (2, x.shape[1] * ratio)
+                and np.isfinite(y).all() and lsb <= 1.0):
+            raise AssertionError(
+                f"--ratio {ratio} --latency {latency} at {fs} Hz: "
+                f"{lsb} LSB vs cpu, validate_audio {report}")
+        if device == "cuda" and launches < 1:
+            raise AssertionError(f"--ratio {ratio} --latency {latency} "
+                                 "never launched fused_frames")
+        total += launches
+        no_jax()
+        phase("ratios", f"totton-stream-torch --ratio {ratio} --latency "
+              f"{latency}, {seconds:g} s stereo {fs} Hz -> {fs * ratio} Hz "
+              f"s16 ({chosen}): fused_frames launches {launches}; "
+              f"validate_audio passed (correlation "
+              f"{report['correlation']:.6f}); first {cpu_seconds:g} s vs "
+              f"cpu max {lsb:.0f} LSB (limit 1); wall {walls['run']:.2f} s "
+              f"({device}), {walls['cpu']:.2f} s (cpu, {cpu_seconds:g} s) on "
+              f"{card}")
+    return total
 
 
 def threaded_phase(card, work, device="cuda", seconds=10.0):
@@ -1991,12 +2063,13 @@ def main() -> int:
     os.makedirs(work)
     profile = write_profile(work)
 
-    # 3. Kernel vs plain on the card at the main path's ragged frame counts,
-    # and the ratio-1 (halves) branch at the same counts and at 1024.
+    # 3. Kernel vs plain on the card at the main path's ragged frame counts
+    # at every served geometry, and the ratio-1 (halves) branch at the same
+    # counts and at 1024.
     rng = np.random.default_rng(0)
     main_err = 0.0
-    states = [(name, *engine_state(name, dev)[1:3])
-              for name in PARITY_FILTERS]
+    served = {key: engine_state(name, dev) for key, name in SERVED.items()}
+    states = [(name, *served[key][1:3]) for key, name in SERVED.items()]
     states += ratio1_states(dev, profile)
     for name, cfg, bundle, *_ in states:
         rels = []
@@ -2011,15 +2084,14 @@ def main() -> int:
                 main_err = max(main_err, err)
         phase("parity", f"{name}: kernel vs plain rel by frame count "
               f"{{{', '.join(rels)}}} (limit rel {REL_TOL:g})")
-        del bundle
     del states
 
-    # 4. Kernel vs the float64 oracle at 16x/80k (three launches) and
-    # 16x/8k (resident), 32 blocks each; the classic odd-overlap program.
-    lf, cfg, bundle, hspec = engine_state(MAIN_FILTER, dev)
-    low_state = engine_state(LOW_FILTER, dev)
-    for name, (f, c, b, _) in ((MAIN_FILTER, (lf, cfg, bundle, hspec)),
-                               (LOW_FILTER, low_state)):
+    # 4. Kernel vs the float64 oracle at every served geometry (three
+    # launches at 80k, resident at 8k), 32 blocks each; the classic
+    # odd-overlap program.
+    lf, cfg, bundle, hspec = served["16x_80k"]
+    for key, (f, c, b, _) in served.items():
+        name = SERVED[key]
         k_db, p_db = snr_db(f, c, b, rng)
         phase("snr", f"{name} ({c.ratio}x, {c.taps} taps) vs float64 oracle,"
               f" {SNR_BLOCKS} blocks: kernel {k_db:.2f} dB, plain "
@@ -2071,20 +2143,19 @@ def main() -> int:
         raise AssertionError("the main path never launched fused_frames")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
+    # 5b. The CLI at the other served ratios: 4x and 8x, and 8x low latency
+    # from 48 kHz.
+    ratios_launches = ratios_phase(card, work)
 
     # 6. Kernel vs plain vs the torch.fft composition (library), compared
     # and timed in turns with a cold L2, one 16x/80k stereo dispatch of 512
-    # and of 1024 blocks; the bound; each launch's device time (phase
-    # launches: the three-launch plan), and the same at 16x/8k (the
-    # resident plan, one launch).
-    readings = {blocks: frame_reading("16x/80k", cfg, bundle, hspec, rng,
-                                      blocks, profile=blocks == 512)
-                for blocks in (512, 1024)}
-    for r in readings.values():
-        main_err = max(main_err, r["err"])
-        phase("time", reading_line(r, card))
-    main_r = readings[512]
-    n = 2 * 512
+    # blocks; the bound; each launch's device time (the three-launch
+    # plan), and the same at 16x/8k (the resident plan, one launch) and at
+    # the six other served geometries.
+    main_r = frame_reading("16x/80k", cfg, bundle, hspec, rng)
+    main_err = max(main_err, main_r["err"])
+    phase("time", reading_line(main_r, card))
+    n = 2 * main_r["blocks"]
     phase("bound", f"512 blocks stereo 16x/80k: "
           f"{ff.flops_per_frame(cfg) * n / 1e9:.2f} GFLOP "
           f"({main_r['bound']['operations']:.4f} ms at "
@@ -2096,9 +2167,16 @@ def main() -> int:
           f"({main_r['bound_by']}); kernel at "
           f"{main_r['bound'][main_r['bound_by']] / main_r['ms']['kernel']:.1%}"
           f" of it")
-    low_r = frame_reading("16x/8k", *low_state[1:], rng)
+    low_r = frame_reading("16x/8k", *served["16x_8k"][1:], rng)
     phase("time-8k", reading_line(low_r, card))
-    del low_state
+    # The six other served geometries (4x and 8x have no other timing).
+    served_r = {}
+    for key in SERVED:
+        if key not in ("16x_80k", "16x_8k"):
+            served_r[key] = frame_reading(key.replace("_", "/"),
+                                          *served[key][1:], rng)
+            phase("time-served", reading_line(served_r[key], card))
+    del served
 
     # 7b. trace_context around one 512-block dispatch (the sharded phase's
     # sub-step f), early: late in the process torch.profiler drops the
@@ -2149,9 +2227,9 @@ def main() -> int:
         "route": "cuda",
         "source": "totton_tpu_torch/csrc/fused_frames.cu",
         "replaces": "totton_tpu/experimental/pallas_kernels.py:284",
-        "launches": (launches + serve_launches + low_launches + r1_launches
-                     + th_launches + cf_launches + live_launches
-                     + sh_launches),
+        "launches": (launches + ratios_launches + serve_launches
+                     + low_launches + r1_launches + th_launches
+                     + cf_launches + live_launches + sh_launches),
         "launches_per_dispatch": main_r["per_dispatch"],
         "max_abs_err": main_err,
         "ms": main_r["ms"]["kernel"],
@@ -2161,6 +2239,7 @@ def main() -> int:
         "library_ms": main_r["ms"]["library"],
         "ratio1": reading_entry(r1),
         "16x_8k": reading_entry(low_r),
+        **{key: reading_entry(r) for key, r in served_r.items()},
     }, iir_entry]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -2174,9 +2253,9 @@ def frames_main(root: str) -> int:
     checkout at ROOT (its package and kernel sources, built into its own
     build directory; e.g. a parent commit unpacked under build/) timed by
     frame_reading at 512 stereo blocks of ratio 1 (1025, 4096) with the
-    APO EQ, 16x/8k and 16x/80k, so that two versions can be run in turns
-    in one call on one card. Prints one phase line each and a JSON line
-    of the three."""
+    APO EQ and of every served geometry (SERVED), so that two versions can
+    be run in turns in one call on one card. Prints one phase line each
+    and a JSON line of the nine."""
     sys.path.insert(0, os.path.abspath(root))
     import numpy as np
     import torch
@@ -2193,7 +2272,7 @@ def frames_main(root: str) -> int:
     package = os.path.dirname(os.path.abspath(totton_tpu_torch.__file__))
     rng = np.random.default_rng(7)
     readings = {"ratio1": ratio1_reading(card, write_profile(work), rng)}
-    for key, name in (("16x_8k", LOW_FILTER), ("16x_80k", MAIN_FILTER)):
+    for key, name in SERVED.items():
         r = frame_reading(name, *engine_state(name, "cuda")[1:], rng)
         phase("frames", reading_line(r, card))
         readings[key] = r

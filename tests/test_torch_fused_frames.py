@@ -257,13 +257,16 @@ def _eq_response(tmp_path, fft):
     return resolve_eq_response(str(path), None, fft, 44100)[0]
 
 
-# The six geometries chip_smoke.py holds the kernel to on the card:
-# 16x/80k (fused forward), 2x/80k (two-launch forward), and on the
-# resident plan 16x/8k, 2x/8k (its largest frame) and ratio 1 at (129,
-# 1024) and the CLI's identity (1025, 4096) with an APO EQ.
+# The ten geometries chip_smoke.py holds the kernel to on the card: the
+# 80k bank at 16x and 8x (fused forward) and 4x and 2x (two-launch
+# forward; P != Q at 4x), and on the resident plan the 8k bank at 16x, 8x,
+# 4x and 2x (its largest frame) and ratio 1 at (129, 1024) and the CLI's
+# identity (1025, 4096) with an APO EQ.
 CHIP_GEOMETRIES = [(80001, 131072, 16, False), (80001, 131072, 2, False),
                    (8001, 16384, 16, False), (129, 1024, 1, False),
-                   (1025, 4096, 1, True), (8001, 16384, 2, False)]
+                   (1025, 4096, 1, True), (8001, 16384, 2, False),
+                   (80001, 131072, 4, False), (80001, 131072, 8, False),
+                   (8001, 16384, 4, False), (8001, 16384, 8, False)]
 
 
 @pytest.mark.parametrize("taps,fft,ratio,eq", CHIP_GEOMETRIES)

@@ -6,8 +6,10 @@ and driven through the wrapper's own launch (``fused_frames._launch``,
 the library bound by ``_bind``) on CPU tensors. It is held against the
 plain version (``overlap_save.upsample_frames`` on the folded G) with rel
 < 1e-5, the kernel-vs-plain limit on the card: on the resident plan at
-ratio 1 (129, 1024) and (1025, 4096) with an APO EQ, 16x/8k and 2x/8k,
-and on one small three-launch geometry, at 1, 2 and 3 frames."""
+ratio 1 (129, 1024) and (1025, 4096) with an APO EQ and at every ratio of
+the 8k bank, and on three small three-launch geometries (the fused
+forward at 16x and at the largest frame it takes, the four-step forward
+with P != Q), at 1, 2 and 3 frames."""
 
 from pathlib import Path
 
@@ -29,12 +31,18 @@ EQ_PROFILE = ("Preamp: -5 dB\n"
               "Filter 2: ON LSC Fc 105 Hz Gain 4 dB Q 0.7\n"
               "Filter 3: ON HSC Fc 8000 Hz Gain -2 dB Q 0.7\n")
 # (taps, fft_size, ratio, the APO EQ baked in, resident): ratio 1 at the
-# seeded (129, 1024) and the CLI's identity (1025, 4096) geometries, the
-# 8k bank's largest ratio and largest frame, and a three-launch geometry
-# (h = 16384: fused forward, I1, I2) at a small size.
+# seeded (129, 1024) and the CLI's identity (1025, 4096) geometries; the
+# 8k bank at 16x, 2x (the largest frame), 4x and 8x (fft_resident<2048,
+# 8192> and <1024, 8192>); three-launch geometries at a small size: h =
+# 16384 with the fused forward (F, I1, I2), m = 16384 with the fused
+# forward at its largest (fft_stage<8192>, 64 KB of shared memory, as at
+# 8x/80k), and m = 32768 with the four-step forward at P = 256 != Q = 128
+# (F1, F2, I1, I2; as at 4x/80k), whose inverse splits 256 x 128 too.
 GEOMETRIES = [(129, 1024, 1, False, True), (1025, 4096, 1, True, True),
               (8001, 16384, 16, False, True), (8001, 16384, 2, False, True),
-              (2049, 32768, 16, False, False)]
+              (8001, 16384, 4, False, True), (8001, 16384, 8, False, True),
+              (2049, 32768, 16, False, False), (1025, 32768, 2, False, False),
+              (1025, 65536, 2, False, False)]
 
 
 @pytest.fixture(scope="module")
@@ -46,7 +54,7 @@ def shim_lib(tmp_path_factory):
 def _bundle(taps, fft, ratio, eq, tmp_path):
     cfg = tos.OverlapSaveConfig(taps, fft, fft - taps + 1, ratio)
     rng = np.random.default_rng(taps + ratio)
-    if taps == 1025:
+    if taps == 1025 and ratio == 1:
         h = np.zeros(taps)
         h[0] = 1.0
     else:
