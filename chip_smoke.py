@@ -34,8 +34,14 @@ version and a float64 ``sosfilt``, streamed in chunks, timed, and swept
 over 1, 10, 32 and 40 bands. The deployment layer runs as a service host
 runs it (phase ``deploy``): the image's prebuild into an empty build
 directory, then ``deploy/torch/entrypoint.sh`` in its stream, all and
-serve modes, bare, each CLI in its own process on the card. It
-prints one JSON line with both kernels and a final status line:
+serve modes, bare, each CLI in its own process on the card. Phase ``ci``
+runs what the port's CI workflow cannot on a CPU runner: the cuda-marked
+tests (``tests/test_torch_cuda.py``, in a pytest subprocess without the
+conftest), ``scripts/torch/e2e_local_file_test.sh`` on the card against
+the same script on the CPU, and the port's wheel, built offline and
+installed into a venv, whose kernels build from the wheel's own sources
+into a fresh cache and whose CLI runs on the card. It prints one JSON
+line with both kernels and a final status line:
 
   {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": N}}
 
@@ -101,7 +107,8 @@ FRAME_KERNELS = ("fft_resident", "fft_stage")
 LAUNCH_NAMES = {"fft_resident": "R", "SpecStore": "F",
                 "FwdStage1Store": "F1", "FwdStage2Store": "F2",
                 "InvStage1Store": "I1", "OutStore": "I2"}
-PROFILE_TRIES = 3  # profiler windows a reading takes until one keeps records
+PROFILE_TRIES = 5  # profiler windows a reading takes until one keeps them all
+PROFILE_REPS = 3   # dispatches a profiler window holds
 # The card's peaks (NVIDIA's data sheet, H100 SXM at 700 W): fp32 on the
 # CUDA cores and HBM3; bound_ms is the larger of the two times.
 PEAK_FP32_FLOPS = 67e12
@@ -186,10 +193,12 @@ def kernel_vs_plain(frames, bundle, cfg) -> tuple[float, float]:
 
 def launch_times_ms(fn, reps: int = 3):
     """(device ms per launch of each of the frame kernel's launches the
-    profiler saw, by label (LAUNCH_NAMES: R, or F, I1, I2, ...), kernel
-    launches per call of fn()) from torch.profiler over ``reps`` calls of
+    profiler saw, by label (LAUNCH_NAMES: R, or F, I1, I2, ...), the
+    records each label kept) from torch.profiler over ``reps`` calls of
     fn(), each after an L2 flush; (None, None) where the profiler records
-    no device time."""
+    no device time. The window ends with one more flush, so the last
+    frame launch is not the window's last device record (Kineto drops
+    late records, C13)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -200,8 +209,9 @@ def launch_times_ms(fn, reps: int = 3):
         for _ in range(reps):
             flush_l2()
             fn()
+        flush_l2()
         torch.cuda.synchronize()
-    out, launches = {}, 0
+    out, counts = {}, {}
     for ev in prof.key_averages():
         if not any(k in ev.key for k in FRAME_KERNELS):
             continue
@@ -211,10 +221,10 @@ def launch_times_ms(fn, reps: int = 3):
         for store, label in LAUNCH_NAMES.items():
             if store in ev.key and us > 0:
                 out[label] = us / 1e3 / ev.count
-                launches += ev.count
+                counts[label] = counts.get(label, 0) + ev.count
     if not out:
         return None, None
-    return out, launches // reps if launches % reps == 0 else launches / reps
+    return out, counts
 
 
 def kernel_bound_ms(cfg, n_frames: int):
@@ -377,29 +387,41 @@ def frame_reading(label, cfg, bundle, hspec, rng, blocks=512) -> dict:
     bound, bound_by = kernel_bound_ms(cfg, n)
     labels = list(ff.flops_per_launch(cfg))
     per_launch = per_dispatch = None
+    windows, dropped = 0, []
     why = f"the profiler recorded no device time in {PROFILE_TRIES} windows"
     try:
-        # Kineto drops a window's device records now and then (C13): a
-        # window that kept none is taken again.
-        for _ in range(PROFILE_TRIES):
-            per_launch, per_dispatch = launch_times_ms(fns["kernel"])
-            if per_dispatch is not None:
+        # Kineto drops a window's device records now and then, all of them
+        # or the late ones (C13): a window that did not keep every launch
+        # of every dispatch is taken again. A launch the plan does not
+        # have, or more launches than it has, fails the run.
+        for windows in range(1, PROFILE_TRIES + 1):
+            seen, counts = launch_times_ms(fns["kernel"], reps=PROFILE_REPS)
+            if seen is None:
+                continue
+            if (set(counts) - set(labels)
+                    or max(counts.values()) > PROFILE_REPS):
+                raise AssertionError(
+                    f"{label}: the profiler saw {counts} kernel launches in "
+                    f"{PROFILE_REPS} dispatches; the plan has {labels} once "
+                    f"each")
+            if all(counts.get(x) == PROFILE_REPS for x in labels):
+                per_launch, per_dispatch = seen, len(labels)
                 break
+            dropped.append(counts)
+        if per_dispatch is None and dropped:
+            why = (f"the profiler dropped device records in every one of "
+                   f"{PROFILE_TRIES} windows (kept {dropped} of "
+                   f"{PROFILE_REPS} dispatches)")
     except RuntimeError as e:  # the profiler, not the kernel, failed
         why = f"profiler error: {e}"
     ff.LAUNCHES = saved
     del frames
-    if per_dispatch is not None and (per_dispatch != len(labels)
-                                     or set(per_launch) != set(labels)):
-        raise AssertionError(
-            f"{label}: the profiler saw {per_dispatch} kernel launches per "
-            f"dispatch ({sorted(per_launch)}); the plan has {len(labels)} "
-            f"({labels})")
     return dict(label=label, cfg=cfg, blocks=blocks, rel=rel, err=err,
                 lib_rel=lib_rel, ms=ms, host_ms=sorted(host)[10], medians={
                     k: [round(v, 4) for v in r] for k, r in runs.items()},
                 bound=bound, bound_by=bound_by, labels=labels,
-                per_launch=per_launch, per_dispatch=per_dispatch, why=why)
+                per_launch=per_launch, per_dispatch=per_dispatch, why=why,
+                windows=windows)
 
 
 def reading_line(r: dict, card: str) -> str:
@@ -419,7 +441,8 @@ def reading_line(r: dict, card: str) -> str:
                     f"(plan {len(r['labels'])}): " + ", ".join(
                         f"{x} {r['per_launch'][x]:.4f} ms "
                         f"({by[x] * n / r['per_launch'][x] / 1e6:.0f} GB/s)"
-                        for x in r["labels"]))
+                        for x in r["labels"])
+                    + f" (profiler window {r['windows']} of {PROFILE_TRIES})")
     return (f"{r['blocks']} blocks stereo {r['label']}, cold L2: kernel vs "
             f"plain rel {r['rel']:.3e}, torch.fft composition vs plain rel "
             f"{r['lib_rel']:.3e}; kernel {k:.4f} ms "
@@ -2527,6 +2550,346 @@ def iir_phase(card, device="cuda", seconds=IIR_SECONDS, chunk=IIR_CHUNK):
     }
 
 
+# ---- phase ci: what the port's CI cannot run on a CPU runner -----------
+
+# (a) The cuda-marked tests: every one is in this file, which imports no
+# jax (both checked by tests/test_torch_copies.py) and needs no conftest.
+CI_TESTS = "tests/test_torch_cuda.py"
+# The frame counts and geometries its test_cuda_kernel_matches_plain holds
+# the kernel to against the plain version (tests/test_torch_chip_
+# geometries.py keeps them equal to the test's): phase 3 skips those
+# counts at those geometries and runs the rest of PARITY_FRAMES.
+CI_FRAME_COUNTS = (2, 16, 18, 64, 128, 1024)
+CI_FILTERS = (SERVED["16x_80k"], SERVED["2x_80k"], SERVED["16x_8k"],
+              SERVED["2x_8k"], "ratio 1 (1025, 4096) identity + APO EQ")
+# (b) The port's e2e script, on the card and on the CPU.
+E2E_SCRIPT = os.path.join("scripts", "torch", "e2e_local_file_test.sh")
+# (c) The installed wheel: seconds of 16x/80k stereo through its CLI.
+WHEEL_SECONDS = 3.0
+
+
+def ci_pytest_argv(junit: str) -> list[str]:
+    """(a)'s command: the cuda-marked tests without the conftest (it
+    imports jax, which the card's machine lacks), results to ``junit``."""
+    return [sys.executable, "-m", "pytest", "-p", "no:cacheprovider",
+            "--noconftest", "-m", "cuda", CI_TESTS, f"--junitxml={junit}"]
+
+
+def junit_counts(path: str) -> dict[str, int]:
+    """tests, passed, failures, errors and skipped of a pytest junit XML."""
+    import xml.etree.ElementTree as ET
+
+    root = ET.parse(path).getroot()
+    suite = root if root.tag == "testsuite" else root.find("testsuite")
+    n = {k: int(suite.get(k, 0))
+         for k in ("tests", "failures", "errors", "skipped")}
+    n["passed"] = n["tests"] - n["failures"] - n["errors"] - n["skipped"]
+    return n
+
+
+def e2e_run(work: str, device: str | None) -> dict:
+    """scripts/torch/e2e_local_file_test.sh as a CI job runs it, with
+    TOTTON_DEVICE unset (the card) or ``device``, and the kernels' build
+    directory this process built. The script keeps nothing, so a wrapper
+    named ``python`` first on PATH runs each of its python commands and
+    keeps a copy of the streamer's output WAV. Returns the exit code,
+    output, seconds, the streamer's launches and the kept WAV's path."""
+    import re
+    import shlex
+
+    from totton_tpu_torch.ops import _build
+
+    label = device or "cuda"
+    bin_dir = os.path.join(work, f"e2e_bin_{label}")
+    keep = os.path.join(work, f"e2e_{label}.wav")
+    os.makedirs(bin_dir, exist_ok=True)
+    shim = os.path.join(bin_dir, "python")
+    with open(shim, "w") as f:
+        f.write(f"#!{sys.executable}\n"
+                "import shutil, subprocess, sys\n"
+                "args = sys.argv[1:]\n"
+                f"rc = subprocess.call([{sys.executable!r}, *args])\n"
+                "if rc == 0 and args[:2] == "
+                "['-m', 'totton_tpu_torch.cli.stream']:\n"
+                "    shutil.copyfile(args[args.index('--out') + 1], "
+                f"{keep!r})\n"
+                "sys.exit(rc)\n")
+    os.chmod(shim, 0o755)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("TOTTON_")}
+    env.update(PATH=os.pathsep.join([bin_dir, env.get("PATH", "")]),
+               TOTTON_TORCH_BUILD_DIR=str(_build.build_root()))
+    if device is not None:
+        env["TOTTON_DEVICE"] = device
+    t0 = time.monotonic()
+    proc = subprocess.run(["bash", E2E_SCRIPT], env=env, cwd=HERE,
+                          capture_output=True, text=True, timeout=600)
+    out = proc.stdout + proc.stderr
+    launches = re.findall(r"fused_frames_launches=(\d+)", out)
+    return {"rc": proc.returncode, "out": out,
+            "seconds": time.monotonic() - t0, "keep": keep,
+            "launches": int(launches[-1]) if launches else None,
+            "command": f"{'' if device is None else f'TOTTON_DEVICE={device} '}"
+                       f"bash {shlex.quote(E2E_SCRIPT)}"}
+
+
+def wheel_python(root: str) -> str:
+    return os.path.join(root, "venv", "bin", "python")
+
+
+def wheel_env(root: str) -> dict:
+    """An installed package's environment: no checkout on PYTHONPATH, no
+    TOTTON_TORCH_BUILD_DIR, a fresh XDG_CACHE_HOME under ``root``, the
+    venv first on PATH."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("TOTTON_") and k != "PYTHONPATH"}
+    env.update(XDG_CACHE_HOME=os.path.join(root, "cache"),
+               PATH=os.pathsep.join([os.path.dirname(wheel_python(root)),
+                                     env.get("PATH", "")]))
+    return env
+
+
+def start_wheel(work: str):
+    """Phase ci (c), started early beside deploy (a): build this
+    checkout's wheel offline (pip wheel --no-deps --no-build-isolation,
+    from a copy of the files the wheel takes), install it with --no-deps
+    --no-index into a venv made with --system-site-packages, and from a
+    temporary directory, with the venv's python, run the image's prebuild
+    (prebuild_command: both kernels and the native library), which builds
+    into the fresh XDG_CACHE_HOME. Where this interpreter is itself a venv
+    its site-packages (torch) are not the system's, so the new venv gets a
+    .pth naming them. Returns (thread, result); finish_wheel joins it."""
+    import shlex
+    import sysconfig
+    import threading
+
+    root = os.path.join(work, "wheel")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(os.path.join(root, "cwd"))
+    result = {"root": root, "steps": []}
+
+    def step(name, argv, **kw):
+        t0 = time.monotonic()
+        proc = subprocess.run(argv, capture_output=True, text=True,
+                              timeout=600, **kw)
+        result["steps"].append((name, time.monotonic() - t0))
+        if proc.returncode != 0:
+            raise RuntimeError(f"{name} exited {proc.returncode}: "
+                               f"{(proc.stdout + proc.stderr)[-3000:]}")
+        return proc.stdout
+
+    def run():
+        try:
+            src = os.path.join(root, "src")
+            skip = shutil.ignore_patterns("__pycache__", "*.so")
+            for name in ("totton_tpu", "totton_tpu_torch"):
+                shutil.copytree(os.path.join(HERE, name),
+                                os.path.join(src, name), ignore=skip)
+            for name in ("pyproject.toml", "README.md", "LICENSE"):
+                shutil.copyfile(os.path.join(HERE, name),
+                                os.path.join(src, name))
+            dist = os.path.join(root, "dist")
+            step("pip wheel", [sys.executable, "-m", "pip", "wheel",
+                               "--no-deps", "--no-build-isolation",
+                               "--no-index", "-w", dist, src])
+            (wheel,) = [os.path.join(dist, n) for n in os.listdir(dist)
+                        if n.endswith(".whl")]
+            result["wheel"] = wheel
+            venv = os.path.join(root, "venv")
+            step("venv", [sys.executable, "-m", "venv",
+                          "--system-site-packages", venv])
+            if sys.prefix != sys.base_prefix:
+                purelib = subprocess.run(
+                    [wheel_python(root), "-c", "import sysconfig; "
+                     "print(sysconfig.get_paths()['purelib'])"],
+                    capture_output=True, text=True, check=True).stdout.strip()
+                with open(os.path.join(purelib, "smoke_outer_site.pth"),
+                          "w") as f:
+                    f.write(sysconfig.get_paths()["purelib"] + "\n")
+            step("pip install", [wheel_python(root), "-m", "pip", "install",
+                                 "--no-deps", "--no-index", wheel])
+            (_, _, code), = [shlex.split(prebuild_command())]
+            out = step("prebuild", [wheel_python(root), "-c", code
+                                    + "; import totton_tpu_torch; "
+                                    "print(totton_tpu_torch.__file__)"],
+                       env=wheel_env(root), cwd=os.path.join(root, "cwd"))
+            result["package"] = out.strip().splitlines()[-1]
+        except (OSError, RuntimeError, ValueError,
+                subprocess.SubprocessError) as e:
+            result["error"] = repr(e)
+
+    thread = threading.Thread(target=run, name="smoke-wheel")
+    thread.start()
+    return thread, result
+
+
+def finish_wheel(card, pending) -> dict:
+    """Phase ci (c), the build ended: join start_wheel's thread (before
+    anything is timed) and check that the venv's package is the wheel's
+    (not this checkout) and that the prebuild built both kernels and the
+    native library into the fresh cache, under the same source hash as
+    this checkout's build."""
+    from totton_tpu_torch.ops import _build
+
+    thread, result = pending
+    t0 = time.monotonic()
+    thread.join()
+    waited = time.monotonic() - t0
+    if "error" in result:
+        raise AssertionError(f"ci (c): the wheel failed: {result['error']}")
+    root = result["root"]
+    cache = os.path.join(root, "cache", "totton_tpu_torch")
+    built = sorted(tree_state(cache)) if os.path.isdir(cache) else []
+    want = sorted([os.path.join("native", "_totton_native.so")] + [
+        os.path.join(os.path.basename(os.path.dirname(_build.build(k))),
+                     f"lib{k}.so") for k in KERNELS])
+    package = result.get("package", "")
+    checks = {
+        "the package is the venv's": package.startswith(
+            os.path.join(root, "venv")),
+        "both kernels and the native library in the fresh cache, as this "
+        "checkout's hash": built == want,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"ci (c) failed {failed}: package {package}, "
+                             f"built {built}, expected {want}")
+    phase("ci", f"(c) {os.path.basename(result['wheel'])} built offline "
+          f"(pip wheel --no-deps --no-build-isolation) and installed "
+          f"--no-deps --no-index into a venv, then the image's prebuild run "
+          f"by its python from a temporary directory, TOTTON_TORCH_BUILD_DIR "
+          f"unset: " + ", ".join(f"{n} {s:.2f} s" for n, s in result["steps"])
+          + f" (the prebuild: nvcc of both kernels from the wheel's "
+          f"sources, cold, into XDG_CACHE_HOME); {', '.join(built)}; run "
+          f"beside phases 3-4, joined before phase 5, which waited "
+          f"{waited:.2f} s for it, on {card}")
+    return result
+
+
+def ci_phase(card, work, wheel) -> int:
+    """What the port's CI (.github/workflows/ci-torch.yml, a CPU runner)
+    cannot run, on the card. (a) CI_TESTS, the cuda-marked tests, in a
+    pytest subprocess with --noconftest and this process's build
+    directory: passed must equal collected, nothing skipped. (b) the e2e
+    script with TOTTON_DEVICE unset (the card): [e2e] PASS and the
+    streamer's fused_frames launches > 0, its wall time, and its output
+    within 1 LSB at 16 bits of the same script with TOTTON_DEVICE=cpu (run
+    beside (a)). (c) the installed wheel (start_wheel, finish_wheel): its
+    totton-stream-torch from a temporary directory, WHEEL_SECONDS of
+    16x/80k stereo s16 on the card, launching the kernel built into the
+    fresh cache (nothing built now), within 1 LSB of this checkout's CLI on
+    the same arguments (run in this process). Returns the fused_frames
+    launches of (b) and (c), that run included."""
+    import re
+    import threading
+
+    import numpy as np
+
+    from totton_tpu_torch.io.wav import read_wav, write_wav
+    from totton_tpu_torch.ops import _build
+
+    started = time.monotonic()
+    # (b) on the CPU, beside (a): neither is timed.
+    cpu = {}
+    cpu_thread = threading.Thread(
+        target=lambda: cpu.update(e2e_run(work, "cpu")), name="smoke-e2e-cpu")
+    cpu_thread.start()
+
+    # (a) The cuda-marked tests.
+    junit = os.path.join(work, "ci_cuda.xml")
+    env = dict(os.environ, PYTHONPATH=HERE,
+               TOTTON_TORCH_BUILD_DIR=str(_build.build_root()))
+    before = tree_state(str(_build.build_root()))
+    t0 = time.monotonic()
+    proc = subprocess.run(ci_pytest_argv(junit), env=env, cwd=HERE,
+                          capture_output=True, text=True, timeout=900)
+    a_s = time.monotonic() - t0
+    out = proc.stdout + proc.stderr
+    n = junit_counts(junit) if os.path.exists(junit) else {}
+    summary = out.strip().splitlines()[-1] if out.strip() else ""
+    if not (proc.returncode == 0 and n.get("tests", 0) > 0
+            and n["passed"] == n["tests"] and n["skipped"] == 0
+            and "deselected" not in summary
+            and tree_state(str(_build.build_root())) == before):
+        raise AssertionError(f"ci (a): pytest exited {proc.returncode}, "
+                             f"{n}: {out[-4000:]}")
+    phase("ci", f"(a) {' '.join(ci_pytest_argv('<xml>')[1:])}: "
+          f"collected {n['tests']}, passed {n['passed']}, skipped "
+          f"{n['skipped']}, failed {n['failures'] + n['errors']} "
+          f"('{summary}'), nothing rebuilt; {a_s:.2f} s on {card}")
+
+    # (b) The e2e script on the card, alone, then against the CPU run.
+    cuda = e2e_run(work, None)
+    cpu_thread.join()
+    for r in (cuda, cpu):
+        if r.get("rc") != 0 or "[e2e] PASS" not in r.get("out", ""):
+            raise AssertionError(f"ci (b): {r.get('command')} exited "
+                                 f"{r.get('rc')}: {r.get('out', '')[-3000:]}")
+    if not cuda["launches"] or cpu["launches"] != 0:
+        raise AssertionError(f"ci (b): fused_frames launches {cuda['launches']}"
+                             f" on the card, {cpu['launches']} on the cpu")
+    (y, rate), (yc, rate_c) = read_wav(cuda["keep"]), read_wav(cpu["keep"])
+    bits = 8 * (os.path.getsize(cuda["keep"]) - WAV_HEADER_BYTES) // y.size
+    pcm = []
+    for path in (cuda["keep"], cpu["keep"]):
+        with open(path, "rb") as f:
+            pcm.append(np.frombuffer(f.read()[WAV_HEADER_BYTES:],
+                                     f"<i{bits // 8}").astype(np.int64))
+    lsb_own = int(np.abs(pcm[0] - pcm[1]).max())
+    lsb = max_lsb(y, yc)
+    if not (rate == rate_c and lsb <= 1.0):
+        raise AssertionError(f"ci (b): cuda vs cpu {lsb} LSB at 16 bits, "
+                             f"rates {rate} {rate_c}")
+    report = re.search(r'"correlation": ([\d.e-]+)', cuda["out"])
+    phase("ci", f"(b) {cuda['command']} (the card): [e2e] PASS, "
+          f"correlation {report[1] if report else '?'}, fused_frames "
+          f"launches {cuda['launches']} (a 2001-tap 2x filter at fft 2048, "
+          f"block 48), wall {cuda['seconds']:.2f} s; against "
+          f"{cpu['command']} ({cpu['seconds']:.2f} s, beside (a)): "
+          f"{y.shape[1]} frames at {rate} Hz s{bits}, max {lsb:.0f} LSB at "
+          f"16 bits (limit 1), {lsb_own} LSB at s{bits} on {card}")
+
+    # (c) The installed wheel's CLI on the card.
+    root = wheel["root"]
+    cache = os.path.join(root, "cache")
+    before = tree_state(cache)
+    in_path = os.path.join(root, "in.wav")
+    write_wav(in_path, seeded_signal(WHEEL_SECONDS, 60), RATE)
+    args = ["--in", in_path, "--ratio", "16", "--filter-dir", FILTER_DIR,
+            "--format", "s16", "--device", "cuda", "--out"]
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [os.path.join(os.path.dirname(wheel_python(root)),
+                      "totton-stream-torch"), *args,
+         os.path.join(root, "wheel.wav")],
+        env=wheel_env(root), cwd=os.path.join(root, "cwd"),
+        capture_output=True, text=True, timeout=600)
+    c_s = time.monotonic() - t0
+    found = re.findall(r"fused_frames_launches=(\d+)", proc.stderr)
+    c_launches = int(found[-1]) if found else 0
+    rc_ref, ref_launches, _ = run_cli(
+        args + [os.path.join(root, "repo.wav")], capture=True)
+    yw, yr = (read_wav(os.path.join(root, f"{n}.wav"))[0]
+              for n in ("wheel", "repo"))
+    lsb_c = max_lsb(yw, yr)
+    checks = {
+        "exit 0": proc.returncode == 0 and rc_ref == 0,
+        "the kernel launched": c_launches > 0,
+        "nothing built at run time": tree_state(cache) == before,
+        "<= 1 LSB from this checkout's CLI": lsb_c <= 1.0,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"ci (c) failed {failed}: {proc.stderr[-3000:]}")
+    phase("ci", f"(c) the venv's totton-stream-torch, {WHEEL_SECONDS:g} s "
+          f"stereo 44.1 kHz -> 16x/80k s16 on the card from a temporary "
+          f"directory: exit 0, fused_frames launches {c_launches} from the "
+          f"kernel in the fresh cache (nothing built), {c_s:.2f} s; max "
+          f"{lsb_c:.0f} LSB from this checkout's CLI on the same arguments "
+          f"(limit 1) on {card}")
+    phase("ci", f"phase ci took {time.monotonic() - started:.2f} s")
+    return cuda["launches"] + c_launches + ref_launches
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -2567,14 +2930,17 @@ def main() -> int:
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     profile = write_profile(work)
-    # The image's prebuild (phase 13b, sub-step a) on the CPU's cores
-    # while phases 3-4 check the kernels on the card (nothing there is
-    # timed); joined at the end of phase 4.
+    # The image's prebuild (phase 13b, sub-step a) and the wheel's build,
+    # install and prebuild into a fresh cache (phase 14b, sub-step c) on
+    # the CPU's cores while phases 3-4 check the kernels on the card
+    # (nothing there is timed); joined at the end of phase 4.
     prebuild = start_prebuild(work)
+    wheel = start_wheel(work)
 
     # 3. Kernel vs plain on the card at the main path's ragged frame counts
     # at every served geometry, and the ratio-1 (halves) branch at the same
-    # counts and at 1024.
+    # counts and at 1024; where phase ci (a) holds a geometry at
+    # CI_FRAME_COUNTS, only the other counts.
     rng = np.random.default_rng(0)
     main_err = 0.0
     served = {key: engine_state(name, dev) for key, name in SERVED.items()}
@@ -2583,6 +2949,8 @@ def main() -> int:
     for name, cfg, bundle, *_ in states:
         rels = []
         counts = PARITY_FRAMES + ((1024,) if cfg.ratio == 1 else ())
+        if name in CI_FILTERS:  # the rest in phase ci (a)
+            counts = tuple(n for n in counts if n not in CI_FRAME_COUNTS)
         for n in counts:
             frames = torch.from_numpy(
                 (rng.normal(size=(n, cfg.frame_in)) * 0.3).astype(np.float32)
@@ -2609,6 +2977,7 @@ def main() -> int:
             raise AssertionError(f"{name}: SNR {k_db:.2f} dB below the gate")
     classic_phase(card, rng)
     finish_prebuild(card, prebuild)
+    wheel = finish_wheel(card, wheel)
 
     # 5. The main path: totton-stream-torch, file mode, 16x/80k stereo s16.
     from totton_tpu_torch.io.wav import read_wav, write_wav
@@ -2730,6 +3099,10 @@ def main() -> int:
     # the one card, two processes on it, and trace_context.
     torch.cuda.empty_cache()
     sh_launches = sharded_phase(card, work, lf)
+    # 14b. What the port's CI cannot run on a CPU runner: the cuda-marked
+    # tests, the e2e script and the installed wheel, on the card.
+    torch.cuda.empty_cache()
+    ci_launches = ci_phase(card, work, wheel)
     # 15. trace_context at the end of the process: its kernel records, or
     # the trace marked for their loss (sub-step g).
     trace_phase(card, work, bundle, cfg, late=True)
@@ -2744,7 +3117,7 @@ def main() -> int:
         "launches": (launches + ratios_launches + serve_launches
                      + low_launches + r1_launches + th_launches
                      + cf_launches + live_launches + deploy_launches
-                     + sh_launches),
+                     + sh_launches + ci_launches),
         "launches_per_dispatch": main_r["per_dispatch"],
         "max_abs_err": main_err,
         "ms": main_r["ms"]["kernel"],

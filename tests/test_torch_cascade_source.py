@@ -11,7 +11,8 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from torch_cuda_shim import build_library
 from totton_tpu_torch.eq import iir

@@ -4,7 +4,8 @@ same seeded input."""
 
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from totton_tpu.engine.chain import CrossfeedChain as JaxChain
 from totton_tpu.engine.crossfeed import CrossfeedFilter as JaxCfFilter

@@ -1,13 +1,19 @@
-"""chip_smoke.py's geometries against what the product serves.
+"""chip_smoke.py's geometries against what the product serves, and its
+phase ci against the cuda-marked tests it runs.
 
 Every bundled filter's overlap-save geometry must be one that chip_smoke.py
 holds the frame kernel to on the card (``PARITY_FILTERS``: parity, the
 float64 oracle and a timing each), and so must every filter the CLIs' auto
 lookup picks for a ``--ratio`` above 1, at both latencies, both rate
 families and both phases. A new bundled filter or ratio with a geometry of
-its own fails here until chip_smoke.py runs it. CPU only; no kernel.
+its own fails here until chip_smoke.py runs it. Phase ci must run
+tests/test_torch_cuda.py (every cuda-marked test, tests/test_torch_copies.py
+checks) without the conftest, and phase 3 may skip a frame count only
+where that file's kernel test holds the geometry at it. CPU only; no
+kernel.
 """
 
+import ast
 import functools
 import glob
 import os
@@ -18,7 +24,10 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
+torch = pytest.importorskip("torch")
+
 import chip_smoke  # noqa: E402
+import test_torch_cuda  # noqa: E402
 from totton_tpu_torch.cli import serve as serve_cli  # noqa: E402
 from totton_tpu_torch.cli import stream as stream_cli  # noqa: E402
 from totton_tpu_torch.engine.selector import resolve_filter_path  # noqa: E402
@@ -87,3 +96,35 @@ def test_cli_runs_on_the_card_take_4x_8x_both_families_and_banks():
         assert ratio in _ratios(stream_cli)
         resolve_filter_path(None, chip_smoke.FILTER_DIR, "min", ratio, rate,
                             latency)
+
+
+def test_ci_phase_runs_the_cuda_tests_without_the_conftest():
+    argv = chip_smoke.ci_pytest_argv("x.xml")
+    assert argv[1:3] == ["-m", "pytest"]
+    assert chip_smoke.CI_TESTS == "tests/test_torch_cuda.py"
+    assert chip_smoke.CI_TESTS in argv and "--noconftest" in argv
+    assert argv[argv.index("-m", 3) + 1] == "cuda"
+    with open(chip_smoke.__file__) as f:
+        tree = ast.parse(f.read())
+    (main,) = [n for n in tree.body
+               if isinstance(n, ast.FunctionDef) and n.name == "main"]
+    calls = {n.func.id for n in ast.walk(main)
+             if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)}
+    assert {"start_wheel", "finish_wheel", "ci_phase"} <= calls
+
+
+def test_parity_cut_is_held_by_the_cuda_tests(tmp_path):
+    """Phase 3 drops CI_FRAME_COUNTS at CI_FILTERS: the cuda test runs
+    each of those geometries (the ratio-1 one with a seeded filter) at
+    each of those counts."""
+    assert chip_smoke.CI_FRAME_COUNTS == tuple(test_torch_cuda.CUDA_FRAME_COUNTS)
+    names = set(test_torch_cuda.CUDA_FILTERS)
+    served = [f for f in chip_smoke.CI_FILTERS if f.startswith("filter_")]
+    assert set(served) <= names and len(served) == 4
+    (r1,) = [f for f in chip_smoke.CI_FILTERS if not f.startswith("filter_")]
+    assert "ratio1_1025_4096" in names
+    labels = [st[0] for st in chip_smoke.ratio1_states(
+        "cpu", chip_smoke.write_profile(str(tmp_path)))]
+    assert r1 in labels and "(1025, 4096)" in r1
+    assert set(chip_smoke.CI_FRAME_COUNTS) <= set(
+        chip_smoke.PARITY_FRAMES) | {1024}

@@ -11,6 +11,8 @@ import time
 
 import pytest
 
+torch = pytest.importorskip("torch")
+
 from totton_tpu_torch.control.client import DaemonClient
 
 

@@ -7,6 +7,9 @@ import numpy as np
 import pytest
 
 from totton_tpu.testing.convert_audio import main as ref_main
+
+torch = pytest.importorskip("torch")
+
 from totton_tpu_torch.io.pcm import parse_format
 from totton_tpu_torch.io.wav import read_wav, write_wav
 from totton_tpu_torch.testing.convert_audio import main

@@ -12,9 +12,12 @@ function and class member to be the same code with docstrings stripped
 and the port's ``totton_tpu_torch`` imports read as ``totton_tpu``
 (imports inside functions included), except the seams listed below. A
 new divergence, or a seam that stopped diverging, fails. The web app's
-templates and static files must be byte copies. A last test refuses any
-import of the JAX package in the port's modules and in
-``chip_smoke.py``."""
+templates and static files must be byte copies. A test refuses any
+import of the JAX package in the port's modules, in ``chip_smoke.py`` and
+in the card's tests (``tests/test_torch_cuda.py``). The last tests hold
+the port's test files to the rules that let the JAX package's CI run
+without torch (each skips at import without it) and the card's machine
+run the cuda-marked tests (all in one file, which needs no jax)."""
 
 import ast
 import os
@@ -23,6 +26,16 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = "totton_tpu_torch"
+#: The port's test files that read sources only: they import neither
+#: torch nor the port, so they run (and guard the copies) without torch.
+UNGUARDED = ("tests/test_torch_copies.py", "tests/test_torch_surface.py")
+#: The statement every other test file of the port runs, at module level,
+#: before anything that imports torch or the port: without torch (the JAX
+#: package's CI installs none) the file is skipped, not an error.
+TORCH_GUARD = 'torch = pytest.importorskip("torch")'
+#: The one file that holds the port's cuda-marked tests; it runs on the
+#: card with --noconftest (chip_smoke.py's phase ci).
+CUDA_TESTS = "tests/test_torch_cuda.py"
 
 # Definitions of the copy that may differ from the reference (the device
 # seams), and names only one side has (None on the side that lacks it).
@@ -212,8 +225,9 @@ def test_byte_copies_cover_the_reference_assets():
 
 
 def _port_sources() -> list[str]:
-    """Every .py of the port (relative to the repo) and chip_smoke.py."""
-    out = ["chip_smoke.py"]
+    """Every .py of the port (relative to the repo), chip_smoke.py and the
+    port's tests that run on the card's machine, which has no jax."""
+    out = ["chip_smoke.py", CUDA_TESTS]
     for root, dirs, files in os.walk(os.path.join(REPO, PORT)):
         dirs[:] = sorted(d for d in dirs if d != "__pycache__")
         out += [os.path.relpath(os.path.join(root, f), REPO)
@@ -223,9 +237,9 @@ def _port_sources() -> list[str]:
 
 @pytest.mark.parametrize("rel", _port_sources())
 def test_copy_is_not_an_import(rel):
-    """No port module, and not chip_smoke.py, imports jax or the JAX
-    package (``totton_tpu`` or ``totton_tpu.*``), at module top or inside
-    a function."""
+    """No port module, not chip_smoke.py and not the card's tests import
+    jax or the JAX package (``totton_tpu`` or ``totton_tpu.*``), at module
+    top or inside a function."""
     with open(os.path.join(REPO, rel)) as f:
         tree = ast.parse(f.read())
     names = []
@@ -245,3 +259,96 @@ def test_the_parallel_modules_are_checked():
     sources = set(_port_sources())
     for name in ("__init__", "mesh", "distributed", "sharded", "dryrun"):
         assert f"{PORT}/parallel/{name}.py" in sources
+
+
+# ---- the port's test files ---------------------------------------------
+
+
+def _port_tests() -> list[str]:
+    return sorted(f"tests/{n}" for n in os.listdir(os.path.join(REPO, "tests"))
+                  if n.startswith("test_torch_") and n.endswith(".py"))
+
+
+def _imports_torch(node: ast.AST) -> bool:
+    """Whether ``node`` imports torch, the port, chip_smoke or another of
+    the port's test files, or imports a module by name (importlib)."""
+    for n in ast.walk(node):
+        if isinstance(n, ast.Import):
+            names = [a.name for a in n.names]
+        elif isinstance(n, ast.ImportFrom):
+            names = [n.module or ""]
+        elif isinstance(n, ast.Call):
+            f = n.func
+            name = f.attr if isinstance(f, ast.Attribute) else getattr(
+                f, "id", "")
+            if name in ("import_module", "__import__"):
+                return True
+            continue
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            if top in ("torch", PORT, "chip_smoke") or top.startswith(
+                    "test_torch_"):
+                return True
+    return False
+
+
+def torch_guard_fault(source: str) -> str | None:
+    """Why ``source`` (a test file of the port) would fail to import where
+    torch is absent, or None: it needs TORCH_GUARD at module level, and no
+    module-level statement before it may import torch or the port."""
+    body = ast.parse(source).body
+    guard = ast.dump(ast.parse(TORCH_GUARD).body[0])
+    at = [i for i, node in enumerate(body) if ast.dump(node) == guard]
+    if not at:
+        return f"no module-level {TORCH_GUARD!r}"
+    for node in body[:at[0]]:
+        if _imports_torch(node):
+            return f"line {node.lineno} imports before the guard"
+    return None
+
+
+def _source(rel: str) -> str:
+    with open(os.path.join(REPO, rel)) as f:
+        return f.read()
+
+
+@pytest.mark.parametrize("rel", [r for r in _port_tests()
+                                 if r not in UNGUARDED])
+def test_port_test_file_skips_without_torch(rel):
+    assert torch_guard_fault(_source(rel)) is None
+
+
+@pytest.mark.parametrize("rel", [r for r in _port_tests()
+                                 if r not in UNGUARDED])
+def test_guard_check_fails_without_the_guard(rel):
+    """The check above refuses each file with its guard taken out."""
+    source = _source(rel).replace(TORCH_GUARD, "import torch")
+    assert torch_guard_fault(source) is not None
+
+
+@pytest.mark.parametrize("rel", UNGUARDED)
+def test_unguarded_files_import_no_torch(rel):
+    assert not _imports_torch(ast.parse(_source(rel)))
+
+
+def _marks_cuda(node: ast.AST) -> bool:
+    """Whether ``node`` contains ``pytest.mark.cuda``."""
+    return any(isinstance(n, ast.Attribute) and n.attr == "cuda"
+               and ast.unparse(n) == "pytest.mark.cuda"
+               for n in ast.walk(node))
+
+
+def test_cuda_marked_tests_live_in_one_file():
+    """Every cuda-marked test of the repository is in CUDA_TESTS, which
+    marks its whole module: no other test file has the mark, so the one
+    command chip_smoke.py runs on the card takes every such test."""
+    marked = []
+    for name in sorted(os.listdir(os.path.join(REPO, "tests"))):
+        if name.endswith(".py") and _marks_cuda(
+                ast.parse(_source(f"tests/{name}"))):
+            marked.append(f"tests/{name}")
+    assert marked == [CUDA_TESTS]
+    body = ast.parse(_source(CUDA_TESTS)).body
+    assert "pytestmark = pytest.mark.cuda" in [ast.unparse(n) for n in body]

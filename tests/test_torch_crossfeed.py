@@ -5,8 +5,9 @@ test."""
 
 import numpy as np
 import pytest
-import torch
 from scipy import signal as ssig
+
+torch = pytest.importorskip("torch")
 
 from totton_tpu.engine import crossfeed as jcf
 from totton_tpu.filters.hrtf import generate_all

@@ -1,8 +1,9 @@
 """The port's deployment layer (deploy/torch, scripts/torch, release/torch)
-on the CPU.
+and its CI workflow (.github/workflows/ci-torch.yml) on the CPU.
 
 Drift: each ported file is held to its JAX counterpart after the name
-mapping (``to_port``): shell scripts and Dockerfiles line by line, where
+mapping (``to_port``): shell scripts, Dockerfiles and the workflow line
+by line, where
 every hunk that differs must carry a ``seam: <name>`` tag; systemd units
 through configparser and compose files through yaml, where every key that
 differs must be a seam. The seams are the ones the file's header
@@ -10,7 +11,11 @@ declares (``seam <name>: reason``), no more and no fewer. Static checks:
 no port file names a JAX CLI, the JAX package or its platform switch;
 the compose GPU reservations; the web restart hooks name the port's DSP
 container and unit; every Dockerfile COPY source exists; the image's
-prebuild names every kernel source. The entrypoint's modes run in
+prebuild names every kernel source; the workflow parses, every script it
+runs exists and is executable, it runs all six of the port's console
+scripts and no other, checks that jax and torch import before the tests,
+and pins torch to the development image's version. The entrypoint's
+modes run in
 test_torch_deploy_services.py; its stream mode is held here to the port's
 CLI (byte-equal) and to the JAX entrypoint (<= 1 LSB at s16)."""
 
@@ -25,7 +30,8 @@ import sys
 
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -54,7 +60,9 @@ REF_OF = {
     "scripts/torch/e2e_local_file_test.sh": "scripts/e2e_local_file_test.sh",
     "scripts/torch/e2e_docker_test.sh": "scripts/e2e_docker_test.sh",
     "scripts/torch/run_tests.sh": "scripts/run_tests.sh",
+    ".github/workflows/ci-torch.yml": ".github/workflows/ci.yml",
 }
+CI = ".github/workflows/ci-torch.yml"
 # The port's other deployment files: the quickstart, the lock script and
 # the lock it wrote on the card's machine.
 OTHERS = ["release/torch/START_HERE.md", "scripts/torch/freeze_lock.py",
@@ -192,13 +200,14 @@ def test_port_deployment_files_are_known():
             dirs[:] = [x for x in dirs if x != "__pycache__"]
             found += [os.path.relpath(os.path.join(root, f), REPO)
                       for f in files]
-    assert sorted(found) == sorted([*REF_OF, *OTHERS])
+    ported = [r for r in REF_OF if r.startswith(PORT_DIRS)]
+    assert sorted(found) == sorted([*ported, *OTHERS])
 
 
 @pytest.mark.parametrize("rel", sorted(REF_OF))
 def test_port_file_differs_from_reference_only_in_its_seams(rel):
     declared = declared_seams(rel)
-    if rel.endswith((".service", ".yml")):
+    if rel.endswith(".service") or "docker-compose" in rel:
         assert _keyed_seams(rel) == declared
     else:
         assert _line_seams(rel) == declared
@@ -332,6 +341,65 @@ def test_units_pass_systemd_analyze(tmp_path):
 @pytest.mark.parametrize("rel", [r for r in REF_OF if r.endswith(".sh")])
 def test_scripts_are_executable(rel):
     assert os.access(os.path.join(REPO, rel), os.X_OK)
+
+
+# ---- the port's CI workflow ------------------------------------------------
+
+
+def _ci_runs() -> dict[str, list[str]]:
+    """job -> the ``run`` commands of its steps, as the workflow's yaml
+    reads them."""
+    jobs = _compose(_read(CI))["jobs"]
+    return {name: [step["run"] for step in job["steps"] if "run" in step]
+            for name, job in jobs.items()}
+
+
+def test_ci_jobs_and_triggers():
+    """The reference's triggers and Python matrix; the test job and the
+    wheel job, and no docker job (the port's compose needs a GPU)."""
+    port, ref = _compose(_read(CI)), _compose(_read(REF_OF[CI]))
+    # yaml reads the bare key "on" as True.
+    assert port[True] == ref[True]
+    assert sorted(port["jobs"]) == ["test", "wheel"]
+    assert port["jobs"]["test"]["strategy"] == ref["jobs"]["test"]["strategy"]
+
+
+def test_ci_scripts_exist_and_are_executable():
+    scripts = {m for runs in _ci_runs().values() for run in runs
+               for m in re.findall(r"\bscripts/[\w/.-]+\.sh\b", run)}
+    assert scripts == {"scripts/torch/run_tests.sh",
+                       "scripts/torch/e2e_local_file_test.sh"}
+    for rel in scripts:
+        assert os.access(os.path.join(REPO, rel), os.X_OK), rel
+
+
+def test_ci_runs_every_port_console_script():
+    """The wheel job runs each of pyproject's six -torch scripts, and no
+    other, from the venv it installed the wheel into."""
+    runs = "\n".join(_ci_runs()["wheel"])
+    ran = set(re.findall(r"/bin/(totton-[\w-]+) --help", runs))
+    ours = {n for n in chip_smoke.console_scripts() if n.endswith("-torch")}
+    assert len(ours) == 6 and ran == ours
+    assert "assert 'jax' not in sys.modules" in runs
+
+
+def test_ci_checks_both_imports_before_the_tests():
+    """Without torch every port test file skips and the job would pass
+    having run nothing: the install is checked first."""
+    runs = _ci_runs()["test"]
+    check = runs.index('python -c "import jax, torch"')
+    assert check < runs.index("bash scripts/torch/run_tests.sh")
+    assert "TOTTON_DEVICE=cpu bash scripts/torch/e2e_local_file_test.sh" in (
+        runs)
+
+
+def test_ci_torch_pin_is_the_dev_image_version():
+    pins = re.findall(r"torch==([\w.+]+)", _read(CI))
+    (dev,) = re.findall(r"^ARG TORCH_VERSION=(\S+)$",
+                        _read("deploy/torch/Dockerfile.dev"), re.M)
+    assert len(pins) == 2 and set(pins) == {dev}
+    assert _read(CI).count(
+        "--index-url https://download.pytorch.org/whl/cpu") == 2
 
 
 # ---- the entrypoint's stream mode --------------------------------------

@@ -9,6 +9,10 @@ import re
 import subprocess
 import time
 
+import pytest
+
+torch = pytest.importorskip("torch")
+
 from test_torch_deploy import REPO, deploy  # noqa: F401 (fixture)
 import chip_smoke
 from totton_tpu_torch.control.client import DaemonClient

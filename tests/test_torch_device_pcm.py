@@ -4,7 +4,8 @@ the JAX quantizer, on the CPU."""
 
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from totton_tpu.io.pcm import PcmFormat, float_to_pcm, quantize_s16_host
 from totton_tpu.ops import device_pcm as jax_pcm

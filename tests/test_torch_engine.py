@@ -3,7 +3,8 @@ the CPU, with the session's small real filters (tests/conftest.py)."""
 
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from totton_tpu.engine.upsampler import StreamingUpsampler as JaxUpsampler
 from totton_tpu.engine.upsampler import upsample_signal as jax_upsample_signal

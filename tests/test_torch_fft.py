@@ -7,7 +7,8 @@ magnitude, float32 with another summation order than either reference."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from totton_tpu.ops import fft as jfft
 from totton_tpu_torch.ops import fft as tfft

@@ -12,6 +12,9 @@ import pytest
 from totton_tpu.filters import design as ref_design
 from totton_tpu.filters import generate as ref_generate
 from totton_tpu.filters import validate as ref_validate
+
+torch = pytest.importorskip("torch")
+
 from totton_tpu_torch.filters import design, generate, validate
 
 #: (config, taps, phase) kept small so design stays fast.

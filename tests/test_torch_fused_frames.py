@@ -11,7 +11,7 @@ torch.fft in float64) and held against the plain version, and its
 Stockham pass sequence is replayed in numpy with the kernel's own twiddle
 tables and held against numpy's FFT. The kernel source itself runs on the
 CPU in tests/test_torch_fused_frames_source.py; it is compared with the
-plain version on the card by the tests marked ``cuda`` (and by
+plain version on the card by tests/test_torch_cuda.py (and by
 chip_smoke.py).
 """
 
@@ -23,7 +23,8 @@ import os
 import numpy as np
 import jax.numpy as jnp
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from totton_tpu.experimental.pallas_kernels import fused_upsample_blocks as jax_fused
 from totton_tpu.ops import overlap_save as jos
@@ -356,23 +357,6 @@ def test_folded_plain_equals_absorbed_and_jax(rng, taps, fft):
     assert _rel(yf, ref) < REL_TOL
 
 
-@pytest.mark.cuda
-def test_fold_bundle_on_cuda_builds_g_not_gw():
-    """On a CUDA device the swap folds G (h bins; G1 and G2 at ratio 1),
-    never the 32 MB GW, at every ratio."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU: folds on the card's device")
-    dev = torch.device("cuda")
-    for taps, fft, ratio in [(80001, 131072, 16), (8001, 16384, 4),
-                             (1025, 4096, 1)]:
-        _, cfg = _cfgs(taps, fft, ratio)
-        b = tos.fold_bundle(tos.filter_spectrum(np.ones(taps), fft,
-                                                device=dev), cfg)
-        assert not b.absorbed and b.weights.device.type == "cuda"
-        assert tuple(b.weights.shape) == (
-            (2, fft // 2, 2) if ratio == 1 else (fft // 2, 2))
-
-
 def _resident_smem(plan) -> int:
     """fft_resident's shared memory (its Resident<M, H>::SMEM): TB frames
     a block (below h = 4096), XN >= m/2 + 1 slots of X and h of Z a frame,
@@ -549,46 +533,3 @@ def test_bound_bytes_production_16x():
     assert ff.bound_bytes(cfg, 1024) == (
         1024 * 4 * (8192 + 51072) + 8 * 65536 + consts)
     assert pl["fused"] and (pl["P2"], pl["Q2"], pl["k2_0"]) == (256, 256, 156)
-
-
-# Frame counts the main path hands the kernel: a full 512-block stereo
-# dispatch (1024), the ragged 32/8/1-block tail dispatches (64, 16, 2), one
-# off every tile edge (18), and a round count (128).
-CUDA_FRAME_COUNTS = [2, 16, 18, 64, 128, 1024]
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("n_frames", CUDA_FRAME_COUNTS)
-@pytest.mark.parametrize("name", ["filter_44k_16x_80000_min_phase",
-                                  "filter_44k_2x_80000_min_phase",
-                                  "filter_44k_16x_8000_min_phase",
-                                  "filter_44k_2x_8000_min_phase",
-                                  "ratio1_1025_4096"])
-def test_cuda_kernel_matches_plain(name, n_frames):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
-    from totton_tpu.filters.sidecar import load_filter
-
-    rng = np.random.default_rng(0)
-    if name.startswith("ratio1"):
-        # The CLI's ratio-1 geometry with a seeded filter.
-        _, cfg = _cfgs(1025, 4096, 1)
-        taps = rng.normal(size=1025) * np.exp(-np.arange(1025) / 100.0)
-    else:
-        lf = load_filter(os.path.join(REPO, "data", "coefficients",
-                                      name + ".json"))
-        cfg = tos.OverlapSaveConfig.from_sidecar(lf.sidecar)
-        taps = lf.taps
-    dev = torch.device("cuda")
-    bundle = tos.fold_bundle(
-        tos.filter_spectrum(taps, cfg.fft_size, device=dev), cfg)
-    frames = torch.from_numpy(
-        (rng.normal(size=(n_frames, cfg.frame_in)) * 0.3).astype(np.float32)
-    ).to(dev)
-    before = ff.LAUNCHES
-    y = ff.fused_upsample_frames(frames, bundle, cfg)
-    ref = tos.upsample_frames(frames, bundle, cfg)
-    torch.cuda.synchronize()
-    assert ff.LAUNCHES == before + 1
-    assert torch.isfinite(y).all().item()
-    assert _rel(y.cpu().numpy(), ref.cpu().numpy()) < 1e-5

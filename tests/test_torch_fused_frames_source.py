@@ -6,16 +6,18 @@ and driven through the wrapper's own launch (``fused_frames._launch``,
 the library bound by ``_bind``) on CPU tensors. It is held against the
 plain version (``overlap_save.upsample_frames`` on the folded G) with rel
 < 1e-5, the kernel-vs-plain limit on the card: on the resident plan at
-ratio 1 (129, 1024) and (1025, 4096) with an APO EQ and at every ratio of
-the 8k bank, and on three small three-launch geometries (the fused
-forward at 16x and at the largest frame it takes, the four-step forward
-with P != Q), at 1, 2 and 3 frames."""
+ratio 1 (129, 1024) and (1025, 4096) with an APO EQ, at every ratio of
+the 8k bank and at the e2e script's 2x filter (block 48), and on three
+small three-launch geometries (the fused forward at 16x and at the
+largest frame it takes, the four-step forward with P != Q), at 1, 2 and
+3 frames."""
 
 from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from torch_cuda_shim import build_library
 from totton_tpu_torch.control.wiring import resolve_eq_response
@@ -33,7 +35,9 @@ EQ_PROFILE = ("Preamp: -5 dB\n"
 # (taps, fft_size, ratio, the APO EQ baked in, resident): ratio 1 at the
 # seeded (129, 1024) and the CLI's identity (1025, 4096) geometries; the
 # 8k bank at 16x, 2x (the largest frame), 4x and 8x (fft_resident<2048,
-# 8192> and <1024, 8192>); three-launch geometries at a small size: h =
+# 8192> and <1024, 8192>); the filter scripts/torch/e2e_local_file_test.sh
+# designs (2001 taps at fft 2048: block 48, the smallest block a served
+# path gives the kernel); three-launch geometries at a small size: h =
 # 16384 with the fused forward (F, I1, I2), m = 16384 with the fused
 # forward at its largest (fft_stage<8192>, 64 KB of shared memory, as at
 # 8x/80k), and m = 32768 with the four-step forward at P = 256 != Q = 128
@@ -41,6 +45,7 @@ EQ_PROFILE = ("Preamp: -5 dB\n"
 GEOMETRIES = [(129, 1024, 1, False, True), (1025, 4096, 1, True, True),
               (8001, 16384, 16, False, True), (8001, 16384, 2, False, True),
               (8001, 16384, 4, False, True), (8001, 16384, 8, False, True),
+              (2001, 2048, 2, False, True),
               (2049, 32768, 16, False, False), (1025, 32768, 2, False, False),
               (1025, 65536, 2, False, False)]
 

@@ -1,13 +1,14 @@
 """Port parity: totton_tpu_torch.eq.iir (the time-domain biquad cascade)
 against the JAX package's ``_cascade_scan`` on the CPU, on the same seeded
 numpy inputs; both against scipy's float64 ``lfilter``; streaming, state
-carried over from JAX, and the CUDA kernel against the plain version
-(marked ``cuda``: it skips without a card)."""
+carried over from JAX, and the launch count of the CPU path. The CUDA
+kernel against the plain version is in tests/test_torch_cuda.py."""
 
 import numpy as np
 import pytest
-import torch
 from scipy import signal as ssig
+
+torch = pytest.importorskip("torch")
 
 from totton_tpu.eq import iir as jax_iir
 from totton_tpu.eq.apo import parse_eq_string as jax_parse
@@ -172,48 +173,3 @@ def test_cpu_never_launches_the_kernel():
     iir.biquad_cascade(_signal(n=64), parse_eq_string(_profile_text(3)), FS,
                        device="cpu")
     assert iir.LAUNCHES == before
-
-
-def _cuda_case(bands, n, seed):
-    """(x, coeffs, state, preamp) on the card: the first ``bands`` of
-    PROFILE_10 and thirty more peaks, a non-zero carried state."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    text = PROFILE_10 + "".join(
-        f"Filter {11 + i}: ON PK Fc {300 + 500 * i} Hz Gain "
-        f"{1 if i % 2 else -1} dB Q 2\n" for i in range(30))
-    prof = parse_eq_string(text)
-    prof.bands = prof.bands[:bands]
-    coeffs, preamp = iir.profile_to_coeff_matrix(prof, FS)
-    dev = torch.device("cuda")
-    x = torch.from_numpy(_signal(n=n, seed=seed)).to(dev)
-    c = torch.from_numpy(coeffs).to(dev)
-    s0 = torch.from_numpy(np.random.default_rng(1).normal(
-        size=(2, coeffs.shape[0], 2)).astype(np.float32) * 0.01).to(dev)
-    return x, c, s0, preamp
-
-
-def _check_cuda(x, c, s0, preamp):
-    before = iir.LAUNCHES
-    y, st = iir.cascade(x, c, s0, preamp)
-    torch.cuda.synchronize()
-    assert iir.LAUNCHES - before == -(-c.shape[0] // iir.MAX_BANDS)
-    ref, ref_st = iir.cascade_plain(x, c, s0, preamp)
-    assert ((y - ref).abs().max() / ref.abs().max()).item() <= REL_TOL
-    assert torch.allclose(st, ref_st, rtol=1e-4, atol=1e-6)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("bands", [1, 10, 20, 32, 40])
-def test_cuda_kernel_matches_plain(bands):
-    """The kernel against the plain version on the card (40 bands: two
-    launches of at most MAX_BANDS)."""
-    _check_cuda(*_cuda_case(bands, 4096, 6))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 31, 33, 4097])
-def test_cuda_kernel_tails(n):
-    """Partial tiles of 32 samples, with a carried state: the state after
-    the last real sample."""
-    _check_cuda(*_cuda_case(10, n, 7))

@@ -13,6 +13,9 @@ import time
 import pytest
 
 from totton_tpu.control.client import DaemonClient
+
+torch = pytest.importorskip("torch")
+
 from totton_tpu_torch.filters.generate import generate_one
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -10,6 +10,9 @@ import numpy as np
 import pytest
 
 from totton_tpu.io import pcm as ref_pcm
+
+torch = pytest.importorskip("torch")
+
 from totton_tpu_torch import native
 from totton_tpu_torch.io import pcm
 from totton_tpu_torch.ops import _build

@@ -10,6 +10,9 @@ import pytest
 from totton_tpu.io import devices as ref_devices
 from totton_tpu.io import negotiation as ref
 from totton_tpu.io.formats import PcmFormatSet as RefFormats
+
+torch = pytest.importorskip("torch")
+
 from totton_tpu_torch.io import devices
 from totton_tpu_torch.io import negotiation as port
 from totton_tpu_torch.io.formats import PcmFormatSet

@@ -14,6 +14,8 @@ import pytest
 
 from tests.test_opra import SAMPLE_DB, FetchRecorder
 
+torch = pytest.importorskip("torch")
+
 PACKAGES = ("totton_tpu", "totton_tpu_torch")
 _ISO_TIME = re.compile(r"\d{4}-\d\d-\d\dT\d\d:\d\d:\d\d(\.\d+)?\+00:00")
 

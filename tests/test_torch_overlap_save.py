@@ -7,7 +7,8 @@ side runs as tests/test_overlap_save.py runs it."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from totton_tpu.ops import overlap_save as jos
 from totton_tpu_torch.convert import from_jax

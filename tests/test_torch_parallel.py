@@ -12,7 +12,8 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from totton_tpu.filters.sidecar import load_filter as jax_load_filter
 from totton_tpu.parallel import ShardedUpsampler as JaxSharded

@@ -5,7 +5,9 @@ one Chrome trace with one."""
 import json
 import time
 
-import torch
+import pytest
+
+torch = pytest.importorskip("torch")
 
 from totton_tpu.utils.profiling import BlockTimer as JaxBlockTimer
 from totton_tpu_torch.utils.profiling import (

@@ -2,8 +2,8 @@
 package's, on the CPU: each test starts the JAX StreamServer and the port's
 StreamServer(device="cpu") on free ports and sends both the same seeded
 client bytes. f32 replies agree at rel < 1e-5 and with the port's offline
-upsample_signal; the s16 wire within one LSB. One cuda-marked test serves
-on the card and skips here."""
+upsample_signal; the s16 wire within one LSB. Serving on the card is in
+tests/test_torch_cuda.py."""
 
 import contextlib
 import os
@@ -13,7 +13,8 @@ import time
 
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from totton_tpu.filters.sidecar import FilterSidecar, LoadedFilter, load_filter
 from totton_tpu.io.pcm import (
@@ -379,28 +380,3 @@ def test_cuda_server_refused_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         StreamServer(_filter(), "tcp-listen://127.0.0.1:0", RATE,
                      device="cuda")
-
-
-@pytest.mark.cuda
-def test_cuda_serves_two_streams_through_the_kernel(rng):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU: the frame kernel has no CPU mode")
-    from totton_tpu_torch.ops import fused_frames as ff
-
-    lf = load_filter(os.path.join(REPO, "data", "coefficients",
-                                  "filter_44k_16x_8000_min_phase.json"))
-    port = _free_port()
-    srv = StreamServer(lf, f"tcp-listen://127.0.0.1:{port}", RATE,
-                       max_streams=8, channels=2, device="cuda")
-    srv.start()
-    try:
-        before = ff.LAUNCHES
-        signals = [(rng.normal(size=(2, 20000 + 3001 * i)) * 0.3)
-                   .astype(np.float32) for i in range(2)]
-        replies = _concurrent(port, signals, chunk=4096)
-        assert ff.LAUNCHES > before
-        assert not srv.failed
-    finally:
-        srv.stop()
-    for x, y in zip(signals, replies):
-        assert _rel(y, upsample_signal(x, lf, device="cuda")) < REL

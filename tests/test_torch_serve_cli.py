@@ -12,13 +12,16 @@ import threading
 import time
 
 import numpy as np
-import torch
+import pytest
+
+torch = pytest.importorskip("torch")
 
 from totton_tpu.filters.sidecar import load_filter
 from totton_tpu.io.serve_client import ServeClient
 from totton_tpu_torch import serve as serve_mod
 from totton_tpu_torch.cli import serve as serve_cli
 from totton_tpu_torch.engine.upsampler import upsample_signal
+from totton_tpu_torch.ops import fused_frames
 
 torch.set_num_threads(2)
 
@@ -66,10 +69,12 @@ def _in_thread(fn):
     return t, result
 
 
-def test_cli_serves_a_client_and_exits_0(coefficients_dir, rng, capsys):
-    """A client's reply equals the offline upsample; the exit line counts
-    the frame kernel's launches (none on the CPU's plain path), which
-    chip_smoke.py reads from a server the entrypoint started."""
+def _serve_one_client(coefficients_dir, rng, capsys, monkeypatch,
+                      launches_before):
+    """Serve one client through main with the process-wide launch count
+    at ``launches_before`` (what earlier launches in this process, such as
+    the kernel source's CPU runs, left there); returns main's stderr."""
+    monkeypatch.setattr(fused_frames, "LAUNCHES", launches_before)
     port = _free_port()
     x = (rng.normal(size=(2, 6000)) * 0.3).astype(np.float32)
 
@@ -86,12 +91,30 @@ def test_cli_serves_a_client_and_exits_0(coefficients_dir, rng, capsys):
     t.join(timeout=30)
     assert rc == 0
     assert "error" not in result, result
-    assert "fused_frames_launches=0" in capsys.readouterr().err
     lf = load_filter(str(next(coefficients_dir.glob("filter_44k_2x_*.json"))))
     ref = upsample_signal(x, lf, device="cpu")
     y = result["value"]
     assert y.shape == ref.shape
     assert np.abs(y - ref).max() / np.abs(ref).max() < 1e-5
+    return capsys.readouterr().err
+
+
+def test_cli_serves_a_client_and_exits_0(coefficients_dir, rng, capsys,
+                                         monkeypatch):
+    """A client's reply equals the offline upsample; the exit line counts
+    the frame kernel's launches (none on the CPU's plain path), which
+    chip_smoke.py reads from a server the entrypoint started."""
+    err = _serve_one_client(coefficients_dir, rng, capsys, monkeypatch, 0)
+    assert "fused_frames_launches=0" in err
+
+
+def test_cli_launch_count_after_earlier_launches(coefficients_dir, rng,
+                                                 capsys, monkeypatch):
+    """The exit line reports the process-wide counter: with launches made
+    earlier in the process (a test that ran the kernel source on the CPU
+    first, in the same worker), the CPU's plain path adds none to it."""
+    err = _serve_one_client(coefficients_dir, rng, capsys, monkeypatch, 29)
+    assert "fused_frames_launches=29" in err
 
 
 def test_shard_serve_exits_2(coefficients_dir, capsys):

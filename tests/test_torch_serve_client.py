@@ -10,6 +10,8 @@ import threading
 
 import pytest
 
+torch = pytest.importorskip("torch")
+
 from totton_tpu_torch.io.serve_client import ServeClient
 from totton_tpu_torch.io.sockets import HEADER_BYTES, pack_header
 

@@ -14,6 +14,9 @@ import pytest
 
 from totton_tpu.cli.serve_client import main as jax_main
 from totton_tpu.serve import StreamServer as JaxStreamServer
+
+torch = pytest.importorskip("torch")
+
 from totton_tpu_torch.cli.serve_client import main
 from totton_tpu_torch.engine.upsampler import upsample_signal
 from totton_tpu_torch.filters.sidecar import FilterSidecar, LoadedFilter

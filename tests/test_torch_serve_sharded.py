@@ -14,7 +14,8 @@ import time
 
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from totton_tpu.parallel import make_mesh as jax_make_mesh
 from totton_tpu.serve import StreamServer as JaxStreamServer

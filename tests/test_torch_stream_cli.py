@@ -12,7 +12,8 @@ import sys
 
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from totton_tpu.cli import stream as jax_cli
 from totton_tpu.io.devices import AudioSink, WavFileSource
@@ -378,6 +379,30 @@ def test_soft_reset_targets_outermost_engine(coefficients_dir, tmp_path,
     assert captured["pub_endpoint"] == f"ipc://{tmp_path}/pub.sock"
 
 
+def _port_below_ephemeral() -> int:
+    """A free TCP port for a child to listen on, taken below the kernel's
+    ephemeral range: no bind(0) or connect() of another process (the
+    other test workers' servers and clients) is handed it between this
+    check and the child's bind, as a port from bind(0) can be."""
+    import random
+    import socket
+
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            low = int(f.read().split()[0])
+    except OSError:
+        low = 32768
+    for _ in range(100):
+        port = random.randrange(max(1024, low - 8192), low)
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        return port
+    raise AssertionError("no free port below the ephemeral range")
+
+
 def test_transport_error_exits_nonzero(tmp_path):
     """A mid-stream RST on a socket input ends totton-stream-torch with
     exit 1 and the reference's message; an orderly FIN stays exit 0 (the
@@ -393,54 +418,61 @@ def test_transport_error_exits_nonzero(tmp_path):
     env = {k: v for k, v in os.environ.items() if k != "TOTTON_PLATFORM"}
     env["TOTTON_COMPILE_CACHE"] = "0"
 
-    def run_case(rst: bool) -> int:
-        with socket.socket() as probe:
-            probe.bind(("127.0.0.1", 0))
-            port = probe.getsockname()[1]
+    def run_case(rst: bool) -> tuple[int, str, list]:
+        port = _port_below_ephemeral()
         proc = subprocess.Popen(
             [sys.executable, "-m", "totton_tpu_torch.cli.stream",
              "--in", f"tcp-listen://127.0.0.1:{port}", "--out", "null",
              "--device", "cpu"],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             env=env, cwd=REPO)
+        sender = []  # what the sender saw, for the failure message
 
         def send():
-            deadline = time.monotonic() + 120
-            while True:
-                try:
-                    s = socket.create_connection(("127.0.0.1", port),
-                                                 timeout=10)
-                    break
-                except OSError:
-                    if time.monotonic() > deadline:
-                        raise
-                    time.sleep(0.1)
-            s.sendall(pack_header(None, 2, 44100))
-            s.sendall(interleave(np.zeros((2, 4096), np.float32))
-                      .astype("<f4").tobytes())
-            time.sleep(0.5)
-            if rst:
-                s.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER,
-                             struct.pack("ii", 1, 0))
-            s.close()
+            try:
+                deadline = time.monotonic() + 120
+                while True:
+                    try:
+                        s = socket.create_connection(("127.0.0.1", port),
+                                                     timeout=10)
+                        break
+                    except OSError:
+                        if time.monotonic() > deadline:
+                            raise
+                        time.sleep(0.1)
+                sender.append(f"connected {s.getsockname()} -> "
+                              f"{s.getpeername()}")
+                s.sendall(pack_header(None, 2, 44100))
+                s.sendall(interleave(np.zeros((2, 4096), np.float32))
+                          .astype("<f4").tobytes())
+                time.sleep(0.5)
+                if rst:
+                    s.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER,
+                                 struct.pack("ii", 1, 0))
+                s.close()
+            except OSError as e:
+                sender.append(repr(e))
 
         t = threading.Thread(target=send)
         t.start()
         try:
-            rc = proc.wait(timeout=180)
+            out, _ = proc.communicate(timeout=180)
         finally:
             if proc.poll() is None:
                 proc.kill()
-                proc.wait()
+                proc.communicate()
         t.join(timeout=30)
         assert not t.is_alive()
-        out = proc.stdout.read()
-        if rst:
-            assert "transport errors: 1" in out, out[-2000:]
-        return rc
+        return proc.returncode, out, sender
 
-    assert run_case(rst=False) == 0
-    assert run_case(rst=True) == 1
+    for rst, want in ((False, 0), (True, 1)):
+        case = "RST" if rst else "FIN"
+        rc, out, sender = run_case(rst)
+        detail = (f"{case} case: exit {rc} (expected {want}); "
+                  f"sender {sender}; output tail:\n{out[-2000:]}")
+        assert rc == want, detail
+        if rst:
+            assert "transport errors: 1" in out, detail
 
 
 class _ShardedEngineStub:

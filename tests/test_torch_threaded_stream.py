@@ -6,7 +6,9 @@ import threading
 import time
 
 import numpy as np
-import torch
+import pytest
+
+torch = pytest.importorskip("torch")
 
 from totton_tpu.filters.sidecar import load_filter
 from totton_tpu.io.devices import NullSink, NullSource, WavFileSink, WavFileSource

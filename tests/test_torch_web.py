@@ -28,6 +28,8 @@ from tests.test_web import DummyClient
 
 pytest_plugins = "aiohttp.pytest_plugin"
 
+torch = pytest.importorskip("torch")
+
 PACKAGES = ("totton_tpu", "totton_tpu_torch")
 PORT_WEB = Path(__file__).parent.parent / "totton_tpu_torch" / "web"
 VALID_PROFILE = ("Preamp: -6 dB\n"

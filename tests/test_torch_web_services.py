@@ -10,6 +10,8 @@ import json
 
 import pytest
 
+torch = pytest.importorskip("torch")
+
 PACKAGES = ("totton_tpu", "totton_tpu_torch")
 
 
