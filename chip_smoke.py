@@ -97,6 +97,12 @@ CLASSIC_BLOCKS = 32
 # and the serve steps' rows x blocks (8 stereo slots at 2 and 16 blocks:
 # 32, 256; 16 slots at 16 blocks: 512).
 PARITY_FRAMES = (2, 16, 18, 32, 64, 128, 256, 512)
+# Batch invariance: one stereo dispatch of SPLIT_BLOCKS blocks against the
+# same frames dispatched in runs of SPLIT_RUNS frames in turn; each frame
+# must get the same bits (max |diff| 0).
+SPLIT_BLOCKS = 512
+SPLIT_RUNS = (1, 3, 7, 64)
+SPLIT_SEED = 11
 RATE = 44100
 SERVE_FADE = 4096    # output frames of the live swap's crossfade
 # The frame kernel's device functions: fft_resident<M, H>, the resident
@@ -189,6 +195,55 @@ def kernel_vs_plain(frames, bundle, cfg) -> tuple[float, float]:
         raise AssertionError(f"kernel disagrees with plain on "
                              f"{frames.shape[0]} frames: rel {rel:.3e}")
     return rel, err
+
+
+def split_runs(n: int) -> list[tuple[int, int]]:
+    """[lo, hi) runs of SPLIT_RUNS frames in turn covering n frames."""
+    runs, lo = [], 0
+    while lo < n:
+        hi = min(n, lo + SPLIT_RUNS[len(runs) % len(SPLIT_RUNS)])
+        runs.append((lo, hi))
+        lo = hi
+    return runs
+
+
+def split_diff(program, frames) -> float:
+    """Max |diff| between program(frames) on [C, N, ...] frames in one
+    dispatch and the same frames dispatched as ``split_runs(N)`` along
+    axis 1, concatenated."""
+    import torch
+
+    whole = program(frames)
+    parts = torch.cat([program(frames[:, lo:hi])
+                       for lo, hi in split_runs(frames.shape[1])], dim=1)
+    return (parts - whole).abs().max().item()
+
+
+def split_frames(frame_in: int, device):
+    """SPLIT_BLOCKS seeded stereo frames [2, SPLIT_BLOCKS, frame_in] from a
+    generator of their own (SPLIT_SEED), so that the split checks leave
+    the phases' generators as they were."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SPLIT_SEED)
+    return torch.from_numpy((rng.normal(size=(2, SPLIT_BLOCKS, frame_in))
+                             * 0.3).astype(np.float32)).to(device)
+
+
+def kernel_split_diff(bundle, cfg) -> float:
+    """split_diff of the frame kernel on split_frames (each run one launch
+    of [2 * run, frame_in] frames, as ``fused_upsample_blocks`` hands them
+    over)."""
+    from totton_tpu_torch.ops import fused_frames as ff
+
+    def kernel(f):
+        y = ff.fused_upsample_frames(f.reshape(-1, cfg.frame_in).contiguous(),
+                                     bundle, cfg)
+        return y.reshape(f.shape[0], f.shape[1], -1)
+
+    return split_diff(kernel, split_frames(cfg.frame_in,
+                                           bundle.weights.device))
 
 
 def launch_times_ms(fn, reps: int = 3):
@@ -328,6 +383,23 @@ def launch_ms(fn, reps: int = 20, batches: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return sorted(times)[len(times) // 2]
+
+
+def graph_ms(fn, reps: int = 5) -> float:
+    """Device ms of one fn(), without the host's launch pace: fn captured
+    once in a CUDA graph, then the median of ``reps`` replays between
+    CUDA events, each after an L2 flush."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_time_ms(graph.replay, warmup=1, reps=reps)
 
 
 def library_frames(frames, hspec, cfg):
@@ -520,8 +592,11 @@ def classic_phase(card, rng, device="cuda", blocks=CLASSIC_BLOCKS) -> None:
     _upsample_frames_classic``: even taps at ratio 1, no kernel; its DFTs
     are matmuls) on ``device`` at CLASSIC_GEOMETRY: rel against the same
     program on the CPU, and the SNR of both against a float64
-    convolution. Fails only on a wrong shape or non-finite output: a
-    number below the gate is a finding, printed as such."""
+    convolution; then SPLIT_BLOCKS stereo blocks on ``device`` in one
+    dispatch against runs of SPLIT_RUNS (split_diff) and that dispatch's
+    time. Fails on a wrong shape, a non-finite output or a split max
+    |diff| other than 0: an SNR below the gate is a finding, printed as
+    such."""
     import numpy as np
     import torch
 
@@ -532,11 +607,12 @@ def classic_phase(card, rng, device="cuda", blocks=CLASSIC_BLOCKS) -> None:
     h = rng.normal(size=taps) * np.exp(-np.arange(taps) / (taps / 8))
     x = (rng.normal(size=(1, cfg.halo_in + blocks * cfg.block_in))
          * 0.3).astype(np.float32)
-    ys = {}
+    ys, bundles = {}, {}
     for dev in (device, "cpu"):
         bundle = osv.fold_bundle(osv.filter_spectrum(h, fft, device=dev), cfg)
         if not bundle.classic:
             raise AssertionError("an odd overlap must fold the classic bundle")
+        bundles[dev] = bundle
         ys[dev] = osv.upsample_blocks(torch.from_numpy(x).to(dev), bundle,
                                       cfg).cpu().numpy()[0].astype(np.float64)
     ref = np.convolve(x[0].astype(np.float64), h)[cfg.halo_in:
@@ -550,11 +626,27 @@ def classic_phase(card, rng, device="cuda", blocks=CLASSIC_BLOCKS) -> None:
     snrs = {d: 10 * np.log10(np.sum(ref ** 2) / np.sum((v - ref) ** 2))
             for d, v in ys.items()}
     gate = "passed" if min(snrs.values()) > SNR_GATE_DB else "MISSED"
+    # Batch invariance on the device, and the time of one such dispatch.
+    frames = split_frames(cfg.frame_in, device)
+
+    def program(f):
+        return osv.upsample_frames(f, bundles[device], cfg)
+
+    split = split_diff(program, frames)
+    ms = (cuda_time_ms(lambda: program(frames)) if device == "cuda"
+          else float("nan"))
     phase("classic", f"odd overlap ({taps} taps, fft {fft}, ratio {ratio}; "
           f"the classic program, matmul DFTs, no kernel), {blocks} blocks of "
           f"one channel: {device} vs cpu rel {rel:.3e}; vs float64 "
           f"convolution {device} {snrs[device]:.2f} dB, cpu "
-          f"{snrs['cpu']:.2f} dB (gate > {SNR_GATE_DB:g}: {gate}) on {card}")
+          f"{snrs['cpu']:.2f} dB (gate > {SNR_GATE_DB:g}: {gate}); "
+          f"{SPLIT_BLOCKS} stereo blocks on {device} in runs of "
+          f"{', '.join(map(str, SPLIT_RUNS))} vs one dispatch: max |diff| "
+          f"{split:g} (limit 0), one dispatch {ms:.3f} ms on the device "
+          f"(median of 5, L2 flushed) on {card}")
+    if split != 0:
+        raise AssertionError(f"classic program on {device}: a frame's output "
+                             f"depends on its dispatch (max |diff| {split:g})")
 
 
 def free_port() -> int:
@@ -1134,9 +1226,12 @@ def crossfeed_phase(card, work, lf, device="cuda", seconds=(3.0, 10.0),
     (a) CrossfeedChain(StreamingUpsampler, CrossfeedProcessor) against the
     kernel's own upsample_signal output through a float64 2x2
     fftconvolve, shifted by the chain's latency (rel < 1e-5), with the
-    crossfeed step's share of one ``time_blocks``-block dispatch; (b) the
-    CLI with --crossfeed passes validate_audio. Returns the launches."""
+    crossfeed step's share of one ``time_blocks``-block dispatch, and the
+    step's blocks bit-equal whether stepped at once or in runs of
+    SPLIT_RUNS; (b) the CLI with --crossfeed passes validate_audio.
+    Returns the launches."""
     import numpy as np
+    import torch
     from scipy import signal as ssig
 
     from totton_tpu_torch.filters.hrtf import generate_all
@@ -1196,8 +1291,6 @@ def crossfeed_phase(card, work, lf, device="cuda", seconds=(3.0, 10.0),
     t_chain = time.perf_counter() - t0
     cf_ms = float("nan")
     if device == "cuda":
-        import torch
-
         cf = chain.crossfeed
         y_dev = torch.from_numpy(y_up[:, :y_up.shape[1] - y_up.shape[1]
                                       % cf.config.block_in].copy()).to(device)
@@ -1205,6 +1298,26 @@ def crossfeed_phase(card, work, lf, device="cuda", seconds=(3.0, 10.0),
                              warmup=1, reps=3)
         del y_dev
         torch.cuda.empty_cache()
+
+    # The 2x2 step, batch invariance: time_blocks blocks in one step
+    # against the same blocks stepped in runs of SPLIT_RUNS, the tail
+    # carried.
+    cf = chain.crossfeed
+    cbi = cf.config.block_in
+    xb = torch.from_numpy(seeded_signal(time_blocks * cbi / RATE, 5)
+                          [:, :time_blocks * cbi].copy()).to(device)
+    tail0 = torch.zeros((2, cf.config.halo_in), device=device)
+    whole, _ = cf._step(tail0, xb, cf._h)
+    tail, parts = tail0, []
+    for lo, hi in split_runs(time_blocks):
+        y_run, tail = cf._step(tail, xb[:, lo * cbi:hi * cbi], cf._h)
+        parts.append(y_run)
+    cf_split = (torch.cat(parts, 1) - whole).abs().max().item()
+    del xb, whole, parts
+    if cf_split != 0:
+        raise AssertionError(f"crossfeed step on {device}: a block's output "
+                             f"depends on its dispatch (max |diff| "
+                             f"{cf_split:g})")
 
     # (b) the CLI with --crossfeed.
     xs = sine(1000.0, seconds[1], RATE, amplitude=0.5, channels=2)
@@ -1233,7 +1346,10 @@ def crossfeed_phase(card, work, lf, device="cuda", seconds=(3.0, 10.0),
           f"dispatch, host: upsampler {t_up * 1e3:.1f} ms, chain "
           f"{t_chain * 1e3:.1f} ms (crossfeed share "
           f"{(t_chain - t_up) / t_chain:.1%}); crossfeed step device "
-          f"{cf_ms:.3f} ms; (b) --crossfeed CLI {seconds[1]:g} s: exit {rc}, "
+          f"{cf_ms:.3f} ms; the step on {time_blocks} blocks in runs of "
+          f"{', '.join(map(str, SPLIT_RUNS))} vs one step: max |diff| "
+          f"{cf_split:g} (limit 0); (b) --crossfeed CLI {seconds[1]:g} s: "
+          f"exit {rc}, "
           f"validate_audio {json.dumps(report, default=float)}; "
           f"fused_frames launches {launches} + {n_cli} on {card}")
     return launches + n_cli
@@ -2959,8 +3075,15 @@ def main() -> int:
             rels.append(f"{n}: {rel:.3e}")
             if name == MAIN_FILTER:
                 main_err = max(main_err, err)
+        split = kernel_split_diff(bundle, cfg)
         phase("parity", f"{name}: kernel vs plain rel by frame count "
-              f"{{{', '.join(rels)}}} (limit rel {REL_TOL:g})")
+              f"{{{', '.join(rels)}}} (limit rel {REL_TOL:g}); kernel, "
+              f"{SPLIT_BLOCKS} stereo blocks in runs of "
+              f"{', '.join(map(str, SPLIT_RUNS))} vs one dispatch: max "
+              f"|diff| {split:g} (limit 0)")
+        if split != 0:
+            raise AssertionError(f"{name}: a frame's kernel output depends "
+                                 f"on its dispatch (max |diff| {split:g})")
     del states
 
     # 4. Kernel vs the float64 oracle at every served geometry (three
@@ -3170,7 +3293,172 @@ def frames_main(root: str) -> int:
     return 0
 
 
+#: (rows, K, N) of a frame's product in the plain programs: a one-stage
+#: DFT of a frame (rows 1), two-stage DFT stages, a pruned inverse stage.
+PROBE_SHAPES = ((1, 512, 512), (1, 64, 64), (32, 64, 64), (64, 64, 32),
+                (128, 128, 64))
+PROBE_FRAMES = 1024
+PROBE_COUNTS = (1, 2, 3, 7, 64, 100, 513)
+#: Stereo blocks a dispatch of the plain programs the card runs on a
+#: user's path (the classic program, the crossfeed step) holds: a live
+#: period's few and a file's deep SPLIT_BLOCKS.
+LIVE_BLOCKS = (1, 2, 4, 8, SPLIT_BLOCKS)
+#: ``ops.fft.CUDA_BATCH`` values ``--plain`` sweeps where the checkout
+#: has the constant.
+PLAIN_BATCHES = (8, 16, 32, 64, 128, 256)
+#: The 80k bank's ratios with an absorbed plan: the CPU programs that
+#: ``--plain`` times and splits.
+PLAIN_CPU_KEYS = ("4x_80k", "8x_80k", "16x_80k")
+
+
+def bmm_probe(dev, raw: bool = True) -> dict:
+    """For each PROBE_SHAPES product against a constant expanded with
+    stride 0: the max |diff| of the first b of PROBE_FRAMES seeded frames
+    as one ``torch.bmm`` of b frames (``raw``) against the same frames in
+    one bmm of all PROBE_FRAMES, by b in PROBE_COUNTS; and the same
+    through the checkout's ``ops.fft.frame_matmul`` where it has one."""
+    import torch
+
+    from totton_tpu_torch.ops import fft as tfft
+
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    mm = getattr(tfft, "frame_matmul", None)
+    out = {}
+    for rows, k, n in PROBE_SHAPES:
+        x = torch.randn(PROBE_FRAMES, rows, k, generator=gen).to(dev)
+        w = torch.randn(k, n, generator=gen).to(dev)
+        runs = {}
+        if raw:
+            runs["bmm"] = lambda a: torch.bmm(a, w.expand(a.shape[0], k, n))
+        if mm is not None:
+            runs["frame_matmul"] = lambda a: mm(a, w)
+        for name, fn in runs.items():
+            whole = fn(x)
+            out[f"{name} {rows}x{k}x{n}"] = {
+                b: (fn(x[:b]) - whole[:b]).abs().max().item()
+                for b in PROBE_COUNTS}
+    return out
+
+
+def plain_main(root: str, reps: int = 5) -> int:
+    """``python3 chip_smoke.py --plain ROOT``: the plain frame programs of
+    the checkout at ROOT, for parent-vs-change calls in turns on one host.
+
+    On the CPU, at the torch default thread count, for each
+    PLAIN_CPU_KEYS geometry: one split_frames stereo dispatch through the
+    CPU's bundle (absorbed) and through the folded G, host ms (median of
+    ``reps``, the two in turns), and each program's split_diff. With a
+    card, the plain programs on it: the 16x/80k dispatch through the
+    folded program; then, for each PLAIN_BATCHES value of
+    ``ops.fft.CUDA_BATCH`` (once where the checkout has none), the
+    classic program at CLASSIC_GEOMETRY and the crossfeed step on a
+    seeded 3102-tap set (the M size) at every LIVE_BLOCKS count, each by
+    cuda_time_ms (the host's launch pace included) and graph_ms (the
+    card's own time), the classic program's split_diff and ``bmm_probe``
+    through ``frame_matmul``; the raw ``torch.bmm`` probe once. Prints
+    one JSON line; exits 1 if a split was not 0."""
+    sys.path.insert(0, os.path.abspath(root))
+    import numpy as np
+    import torch
+
+    import totton_tpu_torch
+    from totton_tpu_torch.engine import crossfeed as tcf
+    from totton_tpu_torch.filters.sidecar import load_filter
+    from totton_tpu_torch.ops import fft as tfft
+    from totton_tpu_torch.ops import overlap_save as osv
+
+    def host_ms(runs, frames):
+        """{name: median host ms} of each run(frames) after one warm-up,
+        the runs taking turns in each of ``reps`` rounds."""
+        ms = {name: [] for name in runs}
+        for run in runs.values():
+            run(frames)
+        for _ in range(reps):
+            for name, run in runs.items():
+                t0 = time.perf_counter()
+                run(frames)
+                ms[name].append((time.perf_counter() - t0) * 1e3)
+        return {name: sorted(v)[len(v) // 2] for name, v in ms.items()}
+
+    def upsampler(bundle, cfg):
+        return lambda f: osv.upsample_frames(f, bundle, cfg)
+
+    splits = {}
+    cpu = {"cpu_capability": torch.backends.cpu.get_cpu_capability(),
+           "threads": torch.get_num_threads()}
+    for key in PLAIN_CPU_KEYS:
+        lf = load_filter(os.path.join(FILTER_DIR, SERVED[key] + ".json"))
+        cfg = osv.OverlapSaveConfig.from_sidecar(lf.sidecar)
+        spec = osv.filter_spectrum(lf.taps, cfg.fft_size)
+        absorbed = osv.fold_bundle(spec, cfg)
+        if not absorbed.absorbed:
+            raise AssertionError(f"{key}: the CPU folded no absorbed bundle")
+        frames = split_frames(cfg.frame_in, "cpu")
+        runs = {"absorbed": upsampler(absorbed, cfg),
+                "folded": upsampler(osv._folded_g(spec, cfg), cfg)}
+        for program, ms in host_ms(runs, frames).items():
+            cpu[f"{key} {program} ms"] = ms
+        for program, run in runs.items():
+            splits[f"cpu {key} {program}"] = split_diff(run, frames)
+        del absorbed, runs, frames
+    out = {"package": os.path.dirname(os.path.abspath(
+               totton_tpu_torch.__file__)),
+           "blocks": SPLIT_BLOCKS, "channels": 2, "cpu": cpu}
+    if torch.cuda.is_available():
+        dev = torch.device("cuda")
+        card = {"card": card_line()}
+        lf = load_filter(os.path.join(FILTER_DIR, MAIN_FILTER + ".json"))
+        cfg = osv.OverlapSaveConfig.from_sidecar(lf.sidecar)
+        bundle = osv.fold_bundle(osv.filter_spectrum(
+            lf.taps, cfg.fft_size, device=dev), cfg)
+        fd = split_frames(cfg.frame_in, dev)
+        run = upsampler(bundle, cfg)
+        card["16x_80k_folded_ms"] = cuda_time_ms(lambda: run(fd))
+        del bundle, run, fd
+        rng = np.random.default_rng(7)
+        taps, fft, ratio = CLASSIC_GEOMETRY
+        ccfg = osv.OverlapSaveConfig(taps, fft, fft - taps + 1, ratio)
+        h = rng.normal(size=taps) * np.exp(-np.arange(taps) / (taps / 8))
+        classic = upsampler(osv.fold_bundle(
+            osv.filter_spectrum(h, fft, device=dev), ccfg), ccfg)
+        cframes = split_frames(ccfg.frame_in, dev)
+        xcfg = tcf._cf_geometry(3102)
+        spec = np.fft.rfft(rng.normal(size=(4, xcfg.taps)) * np.exp(
+            -np.arange(xcfg.taps) / 400.0), xcfg.fft_size)
+        hs = tuple(torch.from_numpy(v.astype(np.float32)).to(dev)
+                   for v in (spec.real, spec.imag))
+        step = tcf._make_cf_step(xcfg)
+        xs = torch.from_numpy((rng.normal(
+            size=(2, SPLIT_BLOCKS * xcfg.block_in)) * 0.3).astype(
+                np.float32)).to(dev)
+        tail = torch.zeros((2, xcfg.halo_in), device=dev)
+        batches = PLAIN_BATCHES if hasattr(tfft, "CUDA_BATCH") else (None,)
+        for b in batches:
+            if b is not None:
+                tfft.CUDA_BATCH = b
+            row = {}
+            for n in LIVE_BLOCKS:
+                cf = cframes[:, :n].contiguous()
+                x = xs[:, :n * xcfg.block_in].contiguous()
+                for name, fn in (("classic", lambda: classic(cf)),
+                                 ("crossfeed", lambda: step(tail, x, hs))):
+                    row[f"{name} {n} ms"] = cuda_time_ms(fn)
+                    row[f"{name} {n} device ms"] = graph_ms(fn)
+            splits[f"cuda classic CUDA_BATCH {b}"] = split_diff(classic,
+                                                                cframes)
+            row["probe"] = bmm_probe(dev, raw=False)
+            card[f"CUDA_BATCH {b}"] = row
+        card["bmm_probe"] = bmm_probe(dev, raw=True)
+        out["cuda"] = card
+    out["splits"] = splits
+    no_jax()
+    print(json.dumps(out))
+    return int(any(v != 0 for v in splits.values()))
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--frames"] and len(sys.argv) == 3:
         sys.exit(frames_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--plain"] and len(sys.argv) == 3:
+        sys.exit(plain_main(sys.argv[2]))
     sys.exit(main())

@@ -144,6 +144,49 @@ def test_cuda_kernel_matches_plain(name, n_frames):
     assert _rel(y.cpu().numpy(), ref.cpu().numpy()) < REL
 
 
+#: The batch-invariance case's geometries: the e2e script's and 16x/80k.
+SPLIT_FILTERS = ["e2e_2001_2048_2x", "filter_44k_16x_80000_min_phase"]
+#: 13 frames, one launch against runs of 1, 2, 3 and 5 frames.
+SPLIT_FRAMES = 13
+SPLIT_RUNS = [1, 2, 3, 5]
+
+
+@pytest.mark.parametrize("name", SPLIT_FILTERS)
+def test_cuda_kernel_frame_bits_do_not_depend_on_the_dispatch(name):
+    """Each frame's block is the same bits whatever the frames launched
+    beside it, on stereo and on one channel (as
+    tests/test_torch_batch_invariance.py holds the plain programs on the
+    CPU)."""
+    dev = _card()
+    rng = np.random.default_rng(0)
+    if name in SEEDED:
+        taps_n, fft, ratio, decay = SEEDED[name]
+        cfg = _cfg(taps_n, fft, ratio)
+        taps = rng.normal(size=taps_n) * np.exp(-np.arange(taps_n) / decay)
+    else:
+        lf = load_filter(os.path.join(FILTER_DIR, name + ".json"))
+        cfg = tos.OverlapSaveConfig.from_sidecar(lf.sidecar)
+        taps = lf.taps
+    bundle = tos.fold_bundle(
+        tos.filter_spectrum(taps, cfg.fft_size, device=dev), cfg)
+
+    def kernel(f):
+        y = ff.fused_upsample_frames(
+            f.reshape(-1, cfg.frame_in).contiguous(), bundle, cfg)
+        return y.reshape(f.shape[0], f.shape[1], -1)
+
+    for channels in (2, 1):
+        frames = torch.from_numpy((rng.normal(
+            size=(channels, SPLIT_FRAMES, cfg.frame_in)) * 0.3).astype(
+                np.float32)).to(dev)
+        whole = kernel(frames)
+        assert torch.isfinite(whole).all().item()
+        for run in SPLIT_RUNS:
+            parts = torch.cat([kernel(frames[:, lo:lo + run])
+                               for lo in range(0, SPLIT_FRAMES, run)], 1)
+            assert torch.equal(parts, whole), (channels, run)
+
+
 # ---- the EQ cascade (csrc/biquad_cascade.cu) ---------------------------
 
 

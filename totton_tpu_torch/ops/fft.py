@@ -5,8 +5,14 @@ The host constant tables (numpy, float64 angles with the exact
 package's), the forward real transforms of the frame programs, and the
 complex ``fft2``/``ifft2`` and real ``rfft2``/``irfft2`` (half-size
 complex DFT plus untangle) that the classic odd-overlap program and the
-crossfeed step share, all as fp32 ``torch.einsum`` (TF32 stays off).
-Spectra are (re, im) float32 pairs, as in the reference.
+crossfeed step share, all as fp32 matmuls (TF32 stays off). Spectra are
+(re, im) float32 pairs, as in the reference.
+
+Every product against a constant goes through ``frame_matmul``, with the
+frames (channels x frames, flattened) on axis 0: a frame's output is the
+same bits whatever the number of frames that share its dispatch, as in
+the JAX package. The public transforms flatten the leading axes of their
+input into that axis.
 
 For N = P * Q (x[n], n = Q*p + q): reshape to A[p, q], DFT over p, twiddle
 by W_N^{k1 q}, DFT over q; the natural-order bin is k = k2*P + k1.
@@ -18,6 +24,7 @@ the same constants through ``device_consts``.
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -67,19 +74,19 @@ def _twiddle(p: int, q: int, inverse: bool) -> tuple[np.ndarray, np.ndarray]:
 
 @functools.lru_cache(maxsize=16)
 def _split_stacked_consts(p: int, q: int):
-    """Host constants of the fully-stacked two-stage real forward DFT:
-    W1[p, k1, r] and W2[k1, q, rin, k2, rout] (inter-stage twiddle folded
-    into the stage-2 weights). Same values as the JAX package's."""
+    """Host constants of the stacked two-stage real forward DFT:
+    W1[p, k1, r] and W2[q, rin, k2, rout], the (re, im) pairs stacked so
+    that each stage is one real product. The JAX package folds the
+    inter-stage twiddle into W2, which makes W2 differ by k1 and so not
+    one constant per frame; here the twiddle is applied between the
+    stages (``_twiddle``)."""
     w1r, w1i = _dft_matrix(p, False)
     w1 = np.stack([w1r, w1i], axis=-1)
-    tw_r, tw_i = _twiddle(p, q, False)
     w2r, w2i = _dft_matrix(q, False)
-    v_r = tw_r[:, :, None] * w2r[None, :, :] - tw_i[:, :, None] * w2i[None]
-    v_i = tw_r[:, :, None] * w2i[None, :, :] + tw_i[:, :, None] * w2r[None]
     w2 = np.stack([
-        np.stack([v_r, v_i], axis=-1),
-        np.stack([-v_i, v_r], axis=-1),
-    ], axis=2).astype(np.float32)
+        np.stack([w2r, w2i], axis=-1),
+        np.stack([-w2i, w2r], axis=-1),
+    ], axis=1)
     return np.ascontiguousarray(w1), np.ascontiguousarray(w2)
 
 
@@ -97,17 +104,76 @@ def complex_mul(ar, ai, br, bi):
     return ar * br - ai * bi, ar * bi + ai * br
 
 
-def _cmatmul(ar, ai, wr, wi):
-    """[..., j] complex x [j, k] complex -> [..., k] via 4 real matmuls."""
-    rr = torch.einsum("...j,jk->...k", ar, wr)
-    ii = torch.einsum("...j,jk->...k", ai, wi)
-    ri = torch.einsum("...j,jk->...k", ar, wi)
-    ir = torch.einsum("...j,jk->...k", ai, wr)
-    return rr - ii, ri + ir
+#: Frames each cuBLAS call of ``frame_matmul`` takes on a CUDA device.
+#: cuBLAS picks its kernel, and with it the rounding, by the batch count
+#: (``python3 chip_smoke.py --plain .`` prints what one ``torch.bmm`` of
+#: a few frames gives against the same frames among 1024), so every call
+#: there gets exactly this many frames, the last call's padded with
+#: zeros: a 512-block stereo dispatch is four calls a product. Every
+#: value from 8 to 256 gave the same bits; 256 is the fastest where the
+#: card's time shows. Timed by ``--plain`` on an NVIDIA H100 80GB HBM3 at
+#: 700 W: a 512-block dispatch of the crossfeed step took 5.04 ms of
+#: device time at 256 against 5.31 at 128, 7.16 at 32 and 15.3 at 8 (the
+#: classic program 1.16 against 1.36, 2.71, 8.2), while at 1-8 blocks,
+#: a live period's, the padding added at most 0.2 ms of device time to
+#: a step whose host time was 2-3.5 ms at every value.
+CUDA_BATCH = 256
+
+
+def frame_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The one contraction of the frame programs. x [F, ..., K] against a
+    constant w [K, N] -> [F, ..., N]; grouped, x [F, G, K] against
+    w [G, K, N] -> [F, G, N] (x[:, g] against w[g]).
+
+    Axis 0 holds the frames. They are the batch of a ``torch.bmm``
+    against ``w`` expanded with stride 0, and each frame's own rows are
+    its M, so every frame goes through a product of one shape whatever
+    the number of frames beside it: its bits do not depend on the size of
+    its dispatch. One GEMM over frames x rows, as an einsum with ``...``
+    gives, lets the BLAS choose its algorithm, and so its rounding, by
+    the number of frames. On a CUDA device the batch goes in calls of
+    ``CUDA_BATCH`` frames."""
+    if w.ndim == 3:  # stacked group-major, seen as [F, G, N]
+        return torch.stack([frame_matmul(x[:, g], w[g])
+                            for g in range(w.shape[0])]).transpose(0, 1)
+    f, (k, n) = x.shape[0], w.shape
+    rows = math.prod(x.shape[1:-1])
+    xb = x.reshape(f, rows, k)
+    if x.device.type == "cuda":
+        y = _cuda_bmm(xb, w.contiguous())
+    else:
+        y = torch.bmm(xb, w.expand(f, k, n))
+    return y.reshape(x.shape[:-1] + (n,))
+
+
+def _cuda_bmm(xb: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """xb [F, rows, K] @ w [K, N] in calls of exactly CUDA_BATCH frames,
+    each from a contiguous, zero-padded copy (so that every call has one
+    shape and one layout)."""
+    f, rows, k = xb.shape
+    total = -(-f // CUDA_BATCH) * CUDA_BATCH
+    xp = xb.new_zeros((total, rows, k))
+    xp[:f] = xb
+    y = xb.new_empty((total, rows, w.shape[1]))
+    we = w.expand(CUDA_BATCH, k, w.shape[1])
+    for lo in range(0, total, CUDA_BATCH):
+        torch.bmm(xp[lo:lo + CUDA_BATCH], we, out=y[lo:lo + CUDA_BATCH])
+    return y[:f]
+
+
+def _dft_rows(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a [F, ..., p, q] against w [p, k] over p -> [F, ..., k, q]."""
+    return frame_matmul(a.transpose(-1, -2), w).transpose(-1, -2)
+
+
+def _cmatmul(ar, ai, wr, wi, mm=frame_matmul):
+    """Complex x against complex w via 4 real products ``mm``."""
+    return mm(ar, wr) - mm(ai, wi), mm(ar, wi) + mm(ai, wr)
 
 
 def _fft_rec(xr, xi, factors, inverse):
-    """Unnormalized complex DFT along the last axis; len = prod(factors)."""
+    """Unnormalized complex DFT along the last axis of [F, ..., n];
+    n = prod(factors)."""
     n = xr.shape[-1]
     p = factors[0]
     wr, wi = device_consts(_dft_matrix, (p, inverse), xr.device)
@@ -116,11 +182,7 @@ def _fft_rec(xr, xi, factors, inverse):
     q = n // p
     ar = xr.reshape(xr.shape[:-1] + (p, q))
     ai = xi.reshape(xi.shape[:-1] + (p, q))
-    brr = torch.einsum("...pq,pk->...kq", ar, wr)
-    bii = torch.einsum("...pq,pk->...kq", ai, wi)
-    bri = torch.einsum("...pq,pk->...kq", ar, wi)
-    bir = torch.einsum("...pq,pk->...kq", ai, wr)
-    br, bi = brr - bii, bri + bir
+    br, bi = _cmatmul(ar, ai, wr, wi, _dft_rows)
     tr, ti = device_consts(_twiddle, (p, q, inverse), xr.device)
     cr, ci = complex_mul(br, bi, tr, ti)
     dr, di = _fft_rec(cr, ci, factors[1:], inverse)  # [..., k1, k2]
@@ -130,24 +192,27 @@ def _fft_rec(xr, xi, factors, inverse):
 
 
 def _fft_rec_real(x, factors):
-    """Unnormalized forward DFT of a REAL input along the last axis: the
-    first stage needs only 2 real matmuls."""
+    """Unnormalized forward DFT of a REAL [F, ..., n] along the last axis:
+    the first stage needs only 2 real products."""
     n = x.shape[-1]
     p = factors[0]
     wr, wi = device_consts(_dft_matrix, (p, False), x.device)
     if len(factors) == 1:
-        return (torch.einsum("...j,jk->...k", x, wr),
-                torch.einsum("...j,jk->...k", x, wi))
+        return frame_matmul(x, wr), frame_matmul(x, wi)
     q = n // p
     a = x.reshape(x.shape[:-1] + (p, q))
-    br = torch.einsum("...pq,pk->...kq", a, wr)
-    bi = torch.einsum("...pq,pk->...kq", a, wi)
+    br, bi = _dft_rows(a, wr), _dft_rows(a, wi)
     tr, ti = device_consts(_twiddle, (p, q, False), x.device)
     cr, ci = complex_mul(br, bi, tr, ti)
     dr, di = _fft_rec(cr, ci, factors[1:], False)
     out_r = dr.transpose(-1, -2).reshape(x.shape[:-1] + (n,))
     out_i = di.transpose(-1, -2).reshape(x.shape[:-1] + (n,))
     return out_r, out_i
+
+
+def _frames(x: torch.Tensor, n: int) -> torch.Tensor:
+    """[..., n] -> [F, n] float32, the leading axes flattened into F."""
+    return x.to(torch.float32).reshape(-1, n)
 
 
 def fft2_real(x: torch.Tensor, n: int | None = None):
@@ -159,7 +224,8 @@ def fft2_real(x: torch.Tensor, n: int | None = None):
     x = x.to(torch.float32)
     if n == 1:
         return x, torch.zeros_like(x)
-    return _fft_rec_real(x, _factorize(n))
+    yr, yi = _fft_rec_real(_frames(x, n), _factorize(n))
+    return yr.reshape(x.shape), yi.reshape(x.shape)
 
 
 def _pad_last(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -177,7 +243,9 @@ def fft2(xr: torch.Tensor, xi: torch.Tensor, n: int | None = None):
     xi = _pad_last(xi.to(torch.float32), n)
     if n == 1:
         return xr, xi
-    return _fft_rec(xr, xi, _factorize(n), inverse=False)
+    yr, yi = _fft_rec(_frames(xr, n), _frames(xi, n), _factorize(n),
+                      inverse=False)
+    return yr.reshape(xr.shape), yi.reshape(xr.shape)
 
 
 def ifft2(xr: torch.Tensor, xi: torch.Tensor, n: int | None = None):
@@ -188,9 +256,10 @@ def ifft2(xr: torch.Tensor, xi: torch.Tensor, n: int | None = None):
     xi = _pad_last(xi.to(torch.float32), n)
     if n == 1:
         return xr, xi
-    yr, yi = _fft_rec(xr, xi, _factorize(n), inverse=True)
+    yr, yi = _fft_rec(_frames(xr, n), _frames(xi, n), _factorize(n),
+                      inverse=True)
     s = np.float32(1.0 / n)
-    return yr * s, yi * s
+    return yr.reshape(xr.shape) * s, yi.reshape(xr.shape) * s
 
 
 @functools.lru_cache(maxsize=128)
@@ -253,8 +322,8 @@ def irfft2(xr: torch.Tensor, xi: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def fft2_real_split_stacked(x: torch.Tensor, n: int):
-    """Forward DFT of a real input for two-stage sizes, fully stacked: two
-    einsums, returning d[..., k1, k2, r] with natural-order bin
+    """Forward DFT of a real input for two-stage sizes, stacked: one
+    product a stage, returning d[..., k1, k2, r] with natural-order bin
     X[k2*P + k1] = d[..., k1, k2, 0] + i d[..., k1, k2, 1]. Returns
     (d, P, Q)."""
     factors = _split_factors(n)
@@ -264,7 +333,11 @@ def fft2_real_split_stacked(x: torch.Tensor, n: int):
     p, q = factors
     if x.shape[-1] != n:
         raise ValueError(f"expected length {n}, got {x.shape[-1]}")
-    a = x.to(torch.float32).reshape(x.shape[:-1] + (p, q))
+    a = _frames(x, n).reshape(-1, p, q)
     w1, w2 = device_consts(_split_stacked_consts, (p, q), x.device)
-    b = torch.einsum("...pq,pkr->...kqr", a, w1)
-    return torch.einsum("...fqz,fqzkr->...fkr", b, w2), p, q
+    tr, ti = device_consts(_twiddle, (p, q, False), x.device)
+    b = _dft_rows(a, w1.reshape(p, 2 * p)).reshape(-1, p, 2, q)  # k1 r q
+    cr, ci = complex_mul(b[:, :, 0], b[:, :, 1], tr, ti)
+    c = torch.stack([cr, ci], dim=-1).reshape(-1, p, 2 * q)     # k1 (q z)
+    d = frame_matmul(c, w2.reshape(2 * q, 2 * q))
+    return d.reshape(x.shape[:-1] + (p, q, 2)), p, q

@@ -258,8 +258,9 @@ def _stage2_matrix(q2: int, p2: int, k2_0: int):
 @functools.lru_cache(maxsize=64)
 def _stage2_matrix_stacked(q2: int, p2: int, k2_0: int):
     """Stage-2 weights W2S[q, r, m, e] with the even/odd interleave and the
-    (cr, ci) pair folded in: out[..., m, k, e] =
-    einsum('...kqr,qrme->...mke', c, W2S)."""
+    (cr, ci) pair folded in: for each frame f,
+    out[f, k, (m e)] = c[f, k, (q r)] @ W2S[(q r), (m e)] through
+    ``frame_matmul``."""
     w2_r, w2_i = _stage2_matrix(q2, p2, k2_0)
     a = np.stack([w2_r, w2_i], axis=-1)
     b = np.stack([-w2_i, w2_r], axis=-1)
@@ -349,10 +350,11 @@ def fold_bundles(taps: np.ndarray, cfg: OverlapSaveConfig,
 
 
 def _pruned_half_inverse(zr, zi, h: int, j0: int):
-    """Unnormalized inverse complex DFT of length h computing only the
-    output tail j >= (j0 // P2) * P2 for a two-stage h (whole stage-2
-    columns of the discarded overlap region are never computed). Returns
-    (tr, ti, rem) with rem leading samples for the caller to trim."""
+    """Unnormalized inverse complex DFT of length h over [F, h] computing
+    only the output tail j >= (j0 // P2) * P2 for a two-stage h (whole
+    stage-2 columns of the discarded overlap region are never computed).
+    Returns (tr, ti, rem) with rem leading samples for the caller to
+    trim."""
     factors = _fft._factorize(h)
     if len(factors) != 2:
         tr, ti = _fft._fft_rec(zr, zi, factors, inverse=True)
@@ -360,32 +362,30 @@ def _pruned_half_inverse(zr, zi, h: int, j0: int):
     p2, q2 = factors
     dev = zr.device
     wr, wi = _fft.device_consts(_fft._dft_matrix, (p2, True), dev)
-    ar = zr.reshape(zr.shape[:-1] + (p2, q2))
-    ai = zi.reshape(zi.shape[:-1] + (p2, q2))
-    sub = "...pq,pk->...kq"
-    br = torch.einsum(sub, ar, wr) - torch.einsum(sub, ai, wi)
-    bi = torch.einsum(sub, ar, wi) + torch.einsum(sub, ai, wr)
+    ar = zr.reshape(-1, p2, q2)
+    ai = zi.reshape(-1, p2, q2)
+    br, bi = _fft._cmatmul(ar, ai, wr, wi, _fft._dft_rows)
     tw_r, tw_i = _fft.device_consts(_fft._twiddle, (p2, q2, True), dev)
     cr, ci = _fft.complex_mul(br, bi, tw_r, tw_i)
     k2_0 = j0 // p2
     rem = j0 - k2_0 * p2
     w2_r, w2_i = _fft.device_consts(_stage2_matrix, (q2, p2, k2_0), dev)
-    # Emit [..., k2', k1] so natural order j = k2*P2 + k1 is a reshape.
-    dr = (torch.einsum("...kq,qm->...mk", cr, w2_r)
-          - torch.einsum("...kq,qm->...mk", ci, w2_i))
-    di = (torch.einsum("...kq,qm->...mk", cr, w2_i)
-          + torch.einsum("...kq,qm->...mk", ci, w2_r))
-    lead = zr.shape[:-1]
-    return dr.reshape(lead + (-1,)), di.reshape(lead + (-1,)), rem
+    # [F, k1, k2'] -> [F, k2', k1], so natural order j = k2*P2 + k1 is a
+    # reshape.
+    dr, di = _fft._cmatmul(cr, ci, w2_r, w2_i)
+    return (dr.transpose(-1, -2).reshape(zr.shape[0], -1),
+            di.transpose(-1, -2).reshape(zr.shape[0], -1), rem)
 
 
 def _absorbed_stacked(frames, gw, cfg: OverlapSaveConfig, plan):
     """Forward DFT + inverse stage 1 (tile, filter and twiddle absorbed in
-    GW) + pruned stage 2 with the interleave absorbed: the JAX package's
-    stacked/stacked2 frame pipeline (ops/overlap_save.py:497-571)."""
+    GW) + pruned stage 2 with the interleave absorbed, on [F, m] frames:
+    the JAX package's stacked/stacked2 frame pipeline
+    (ops/overlap_save.py:497-571). GW differs by stage-1 column q, so
+    stage 1 is a grouped product, one group a column."""
     p2, q2, r_m, _ = plan
     m = cfg.frame_in
-    lead = frames.shape[:-1]
+    n_frames = frames.shape[0]
     gr, gi = gw[..., 0], gw[..., 1]  # [q, s, k]
     m_factors = _fft._split_factors(m)
     if m_factors is not None and q2 % m_factors[0] == 0:
@@ -394,26 +394,32 @@ def _absorbed_stacked(frames, gw, cfg: OverlapSaveConfig, plan):
         # transpose of the spectrum.
         d, p_f, _ = _fft.fft2_real_split_stacked(frames, m)
         w = q2 // p_f
-        x2 = d.reshape(lead + (p_f, r_m, w, 2))            # [f, s, b, r]
+        x2 = d.reshape(n_frames, p_f, r_m, w, 2)             # [f, s, b, r]
+        x2 = x2.permute(0, 3, 1, 2, 4).reshape(n_frames, q2, 2 * r_m)
         gbr = gr.reshape(w, p_f, r_m, p2)                    # [b, f, s, k]
         gbi = gi.reshape(w, p_f, r_m, p2)
         w1 = torch.stack([torch.stack([gbr, gbi], -1),
-                          torch.stack([-gbi, gbr], -1)], -2)  # [b,f,s,k,rin,x]
-        c = torch.einsum("...fsbr,bfskrx->...kbfx", x2, w1)
-        c = c.reshape(lead + (p2, q2, 2))
+                          torch.stack([-gbi, gbr], -1)], 3)  # [b,f,s,rin,k,x]
+        w1 = w1.reshape(q2, 2 * r_m, 2 * p2)
     else:
         xr, xi = _fft.fft2_real(frames, m)
-        x2 = torch.cat([xr.reshape(lead + (r_m, q2)),
-                        xi.reshape(lead + (r_m, q2))], dim=-2)  # [2s, q]
+        x2 = torch.cat([xr.reshape(n_frames, r_m, q2),
+                        xi.reshape(n_frames, r_m, q2)], dim=-2)  # [2s, q]
+        x2 = x2.transpose(-1, -2)                                # [q, 2s]
         w1 = torch.stack([torch.cat([gr, -gi], dim=1),
                           torch.cat([gi, gr], dim=1)], -1)      # [q, 2s, k, r]
-        c = torch.einsum("...zq,qzkr->...kqr", x2, w1)
+        w1 = w1.reshape(q2, 2 * r_m, 2 * p2)
+    c = _fft.frame_matmul(x2, w1)                               # [q, (k r)]
+    c = c.reshape(n_frames, q2, p2, 2).permute(0, 2, 1, 3)      # [k, q, r]
     j0 = cfg.overlap // 2
     k2_0 = j0 // p2
     rem = j0 - k2_0 * p2
     (s2,) = _fft.device_consts(_stage2_matrix_stacked, (q2, p2, k2_0),
                                frames.device)
-    out = torch.einsum("...kqr,qrme->...mke", c, s2).reshape(lead + (-1,))
+    out = _fft.frame_matmul(c.reshape(n_frames, p2, 2 * q2),
+                            s2.reshape(2 * q2, -1))             # [k, (m e)]
+    out = out.reshape(n_frames, p2, -1, 2).transpose(1, 2)      # [m, k, e]
+    out = out.reshape(n_frames, -1)
     return out[..., 2 * rem: 2 * rem + cfg.block_size]
 
 
@@ -423,25 +429,35 @@ def upsample_frames(frames: torch.Tensor, bundle: FoldedBundle,
     [..., frame_in] input-rate frames -> [..., block_size] output blocks.
     The bundle's form picks the program: absorbed (GW), folded (G, valid
     at every ratio) or, for odd overlaps, classic, as in the JAX
-    package."""
-    frames = frames.to(torch.float32)
+    package. Each frame's block is the same bits whatever the frames
+    beside it (``ops.fft.frame_matmul``)."""
     plan = absorbed_plan(cfg)
     if (bundle.classic != (cfg.overlap % 2 != 0)
             or (bundle.absorbed and plan is None)):
         raise ValueError("bundle was folded for another geometry")
+    lead = frames.shape[:-1]
+    m = cfg.frame_in
+    frames = frames.to(torch.float32).reshape(-1, m)
     if bundle.classic:
-        return _upsample_frames_classic(frames, bundle, cfg)
-    if bundle.absorbed:
-        return _absorbed_stacked(frames, bundle.weights, cfg, plan)
+        out = _upsample_frames_classic(frames, bundle, cfg)
+    elif bundle.absorbed:
+        out = _absorbed_stacked(frames, bundle.weights, cfg, plan)
+    else:
+        out = _upsample_frames_folded(frames, bundle.weights, cfg)
+    return out.reshape(lead + (cfg.block_size,))
+
+
+def _upsample_frames_folded(frames, g, cfg: OverlapSaveConfig):
+    """The folded program on [F, m] frames: Z = tile(X)*G, then the pruned
+    half-size inverse."""
     m = cfg.frame_in
     h = cfg.fft_size // 2
     j0 = cfg.overlap // 2
     xr, xi = _fft.fft2_real(frames, m)
-    g = bundle.weights
     if cfg.ratio >= 2:
         reps = h // m
-        er = xr.repeat((1,) * (xr.ndim - 1) + (reps,)) if reps > 1 else xr
-        ei = xi.repeat((1,) * (xi.ndim - 1) + (reps,)) if reps > 1 else xi
+        er = xr.repeat((1, reps)) if reps > 1 else xr
+        ei = xi.repeat((1, reps)) if reps > 1 else xi
         zr, zi = _fft.complex_mul(er, ei, g[:, 0], g[:, 1])
     else:  # ratio 1: h = m // 2; the second term reads the upper half.
         g1, g2 = g[0], g[1]
@@ -450,7 +466,7 @@ def upsample_frames(frames: torch.Tensor, bundle: FoldedBundle,
         zr = er * g1[:, 0] - ei * g1[:, 1] + e2r * g2[:, 0] - e2i * g2[:, 1]
         zi = er * g1[:, 1] + ei * g1[:, 0] + e2r * g2[:, 1] + e2i * g2[:, 0]
     tr, ti, rem = _pruned_half_inverse(zr, zi, h, j0)
-    out = torch.stack([tr, ti], -1).reshape(frames.shape[:-1] + (-1,))
+    out = torch.stack([tr, ti], -1).reshape(frames.shape[0], -1)
     return out[..., 2 * rem: 2 * rem + cfg.block_size]
 
 
