@@ -47,11 +47,16 @@ SEAMS = {
         "StreamServer.load_filter", "StreamServer._apply_pending_control",
         "StreamServer._to_device", "StreamServer._drain_one",
         "StreamServer._dispatcher", "StreamServer.start",
+        # A released slot drops its pre-swap bundle (ROADMAP C21).
+        "StreamServer._release_detached_slots",
         "RowSplit.<fields>", "RowSplit.__init__", "RowSplit.__getitem__",
         "_row_split_step",
     },
-    # The warm-up imports the port's fade widths.
-    "io/stream.py": {"_warm_up"},
+    # The warm-up imports the port's fade widths. The threaded session's
+    # loop reads the end-of-input flag before the input ring's fill (the
+    # reference reads it after, and can pad its tail by a negative width
+    # when the feeder finishes between the two reads; ROADMAP C19).
+    "io/stream.py": {"_warm_up", "ThreadedStreamSession.run"},
     "engine/selector.py": set(),
     "engine/chain.py": set(),
     "eq/apo.py": set(),

@@ -12,6 +12,10 @@ attribute access by a module ``__getattr__``).
 
 (b) Every ``.py`` module under ``totton_tpu/`` has its counterpart file
 under ``totton_tpu_torch/``; ``COUNTERPARTS`` holds the two exceptions.
+
+(c) Every test file of the JAX package, ``tests/test_<name>.py``, has its
+twin ``tests/test_torch_<name>.py``, or sits in ``NO_TWIN`` with the
+port's tests that hold what it tests and the reason.
 """
 
 import ast
@@ -30,6 +34,73 @@ COUNTERPARTS = {
                                        "csrc/fused_frames.cu"],
     # Only re-exports the Pallas module; nothing of it is a port surface.
     "experimental/__init__.py": [],
+}
+
+#: The JAX package's test files with no ``test_torch_<name>.py`` twin:
+#: each maps to (the port's test files that hold what it tests, why).
+NO_TWIN = {
+    "test_control.py": (
+        ("test_torch_copies.py", "test_torch_live_control.py",
+         "test_torch_control_cli.py"),
+        "control/{daemon,server,client}.py are verbatim copies; the port's "
+        "control plane is driven in its live-control and control-CLI tests"),
+    "test_eq.py": (
+        ("test_torch_copies.py", "test_torch_iir.py"),
+        "eq/{apo,biquad}.py are verbatim copies; the time-domain cascade, "
+        "the port's own kernel, is held to the JAX scan in test_torch_iir"),
+    "test_hrtf_plots.py": (
+        ("test_torch_copies.py",),
+        "filters/{hrtf,plots}.py are verbatim copies and run no device "
+        "code"),
+    "test_hrtf_sofa.py": (
+        ("test_torch_copies.py", "test_torch_crossfeed.py"),
+        "filters/hrtf.py is a verbatim copy; the crossfeed processor it "
+        "feeds is held to the JAX package's in test_torch_crossfeed"),
+    "test_io.py": (
+        ("test_torch_copies.py", "test_torch_negotiation.py"),
+        "io/{pcm,wav,devices,formats,ring_buffer,negotiation}.py are "
+        "verbatim copies; negotiation has its parity test"),
+    "test_pallas.py": (
+        ("test_torch_fused_frames.py", "test_torch_cuda.py"),
+        "the Pallas frame kernel's port is a CUDA kernel: its plain "
+        "version on the CPU, the kernel itself on the card"),
+    "test_reference_parity.py": (
+        ("test_torch_chip_geometries.py",),
+        "reads the upstream project's artifacts, which the repo does not "
+        "carry, and skips without them; chip_smoke.py's snr phase gates "
+        "every bundled geometry against float64 on the card"),
+    "test_restart.py": (
+        ("test_torch_copies.py", "test_torch_web.py"),
+        "web/services/restart.py is a verbatim copy; the web's restart "
+        "route runs in test_torch_web"),
+    "test_shipped_filters.py": (
+        ("test_torch_copies.py", "test_torch_fused_frames.py"),
+        "checks the shared data/coefficients and engine/selector.py, a "
+        "verbatim copy; every shipped sidecar is in the kernel's envelope"),
+    "test_sockets.py": (
+        ("test_torch_copies.py", "test_torch_stream_cli.py"),
+        "io/sockets.py is a verbatim copy; the port's socket e2e is "
+        "test_torch_stream_cli"),
+    "test_validate_output.py": (
+        ("test_torch_copies.py", "test_torch_stream_cli.py"),
+        "testing/validate_output.py is a verbatim copy; validate_audio "
+        "gates the port's CLI output in test_torch_stream_cli"),
+    "test_web_config.py": (
+        ("test_torch_copies.py", "test_torch_web_services.py"),
+        "web/services/config.py is a verbatim copy; the port's web "
+        "services run in test_torch_web_services"),
+    "test_web_eq_service.py": (
+        ("test_torch_copies.py", "test_torch_web_services.py"),
+        "web/services/eq.py is a verbatim copy; the port's web services "
+        "run in test_torch_web_services"),
+    "test_web_ui.py": (
+        ("test_torch_copies.py", "test_torch_web.py"),
+        "web/app.py and web/i18n.py are verbatim copies and the templates "
+        "byte copies; test_torch_web replays test_web_ui's requests"),
+    "test_webserver_cli.py": (
+        ("test_torch_copies.py", "test_torch_web.py"),
+        "cli/webserver.py is a verbatim copy; test_torch_web serves the "
+        "API from totton-web-torch in its own process"),
 }
 
 #: Names (``module:name``, ``module:Class.method`` or
@@ -192,3 +263,22 @@ def test_lazy_tables_name_modules_of_the_port():
                 assert os.path.exists(path), (rel, k.value, target)
                 assert k.value in _surface(_parse(path), False), (
                     rel, k.value, target)
+
+
+def test_every_reference_test_file_has_a_twin():
+    """(c) Every tests/test_<name>.py of the JAX package has its
+    tests/test_torch_<name>.py, or a NO_TWIN entry that names existing
+    port tests and gives a reason; an entry whose twin now exists, or
+    whose file is gone, fails."""
+    tests = os.path.join(REPO, "tests")
+    files = set(os.listdir(tests))
+    reference = sorted(f for f in files if f.startswith("test_")
+                       and f.endswith(".py")
+                       and not f.startswith("test_torch_"))
+    untwinned = {f for f in reference
+                 if "test_torch_" + f[len("test_"):] not in files}
+    assert untwinned == set(NO_TWIN), (sorted(untwinned - set(NO_TWIN)),
+                                       sorted(set(NO_TWIN) - untwinned))
+    for name, (held_by, reason) in NO_TWIN.items():
+        assert reason.strip(), name
+        assert held_by and all(f in files for f in held_by), (name, held_by)

@@ -662,9 +662,14 @@ class ThreadedStreamSession:
         drainer.start()
         try:
             while True:
+                # The end-of-input flag before the ring's fill: once the
+                # flag is set the feeder has written everything, so the
+                # fill read after it is final. Read the other way round,
+                # the feeder's last writes could land between the two and
+                # leave more than a block for the padded tail.
+                feed_done = self._feed_done.is_set()
                 avail = self._in_ring.available_to_read() // self.channels
                 ready = avail // block_in
-                feed_done = self._feed_done.is_set()
                 if ready and (ready >= self._dispatch_threshold or feed_done):
                     nblocks = _quantize_nblocks(
                         ready, self.max_batch_blocks, self._low_latency)

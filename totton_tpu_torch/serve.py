@@ -748,6 +748,11 @@ class StreamServer:
                     # detached inside its pop critical section, so a
                     # just-claimed slot can never be re-freed here.
                     if slot.detached and slot.index not in self._free:
+                        # A stream cut mid-fade would otherwise keep its
+                        # pre-swap bundle on the device until the slot's
+                        # next stream.
+                        slot.fade_from = None
+                        slot.fade_pos = 0
                         self._free.append(slot.index)
                         log.info("serve: slot %d released", slot.index)
 
@@ -1223,14 +1228,18 @@ class StreamServer:
     # -- lifecycle ---------------------------------------------------------
 
     def start(self) -> None:
-        # Run every step shape the adaptive dispatcher can use (each slot
-        # width at {1, 2, ..., max_blocks_per_step} blocks) once before
-        # listening. The first run builds the frame kernel, so a failed
-        # nvcc build or launch stops startup with its error. The first
-        # step of each shape allocates its device and pinned buffers: at
-        # 16x/80k a 64x16 step took 97-171 ms the first time and 18-29 ms
-        # after (two runs, NVIDIA H100 80GB HBM3, 700 W; PERF.md), a stall
-        # the first client at that shape would otherwise take.
+        # Listen first, as the JAX package does: a client that connects
+        # while the steps below run waits in the backlog instead of being
+        # refused. Then run every step shape the adaptive dispatcher can
+        # use (each slot width at {1, 2, ..., max_blocks_per_step} blocks)
+        # once before accepting. The first run builds the frame kernel, so
+        # a failed nvcc build or launch stops startup with its error. The
+        # first step of each shape allocates its device and pinned
+        # buffers: at 16x/80k a 64x16 step took 97-171 ms the first time
+        # and 18-29 ms after (two runs, NVIDIA H100 80GB HBM3, 700 W;
+        # PERF.md), a stall the first client at that shape would otherwise
+        # take.
+        self._srv = _listen(self.spec, backlog=max(self.max_streams, 16))
         for width in self._slot_widths:
             rows = width * self.channels
             zt = self._to_device(
@@ -1244,7 +1253,6 @@ class StreamServer:
                     y0 = _dp.quantize_s16(y0)
                 fetch(download(y0))
                 k *= 2
-        self._srv = _listen(self.spec, backlog=max(self.max_streams, 16))
         for target, name in ((self._acceptor, "totton-serve-accept"),
                              (self._dispatcher, "totton-serve-dispatch")):
             t = threading.Thread(target=target, daemon=True, name=name)
