@@ -51,6 +51,14 @@ SEAMS = {
         "StreamServer._release_detached_slots",
         "RowSplit.<fields>", "RowSplit.__init__", "RowSplit.__getitem__",
         "_row_split_step",
+        # A server-wide block latency histogram beside the per-stream
+        # reservoir, in STATS and the stats file as block_latency_ms.
+        "LATENCY_EDGES_MS", "latency_quantile", "ServeStats.__init__",
+        "ServeStats.add_block_latencies", "ServeStats._latency_json",
+        "ServeStats.to_json",
+        # The readers' serve.read and the writers' serve.write and
+        # serve.send spans (StreamServer.spans).
+        "StreamServer._reader", "StreamServer._writer",
     },
     # The warm-up imports the port's fade widths. The threaded session's
     # loop reads the end-of-input flag before the input ring's fill (the
@@ -87,8 +95,13 @@ SEAMS = {
     # trace_context wraps torch.profiler where the reference wraps
     # jax.profiler, and marks a CUDA window that kept launches but no
     # kernel record (check_kernel_records, NO_KERNEL_SUFFIX).
+    # Spans records the serve plane's host spans (StreamServer.spans).
     "utils/profiling.py": {"trace_context", "check_kernel_records",
-                           "NO_KERNEL_SUFFIX"},
+                           "NO_KERNEL_SUFFIX", "Spans.<fields>",
+                           "Spans.__init__", "Spans.start", "Spans.stop",
+                           "Spans._intern", "Spans.open", "Spans.close",
+                           "Spans.add", "Spans.dropped", "Spans.snapshot",
+                           "Spans.write_chrome"},
     "control/wiring.py": set(),
     "control/daemon.py": set(),
     "control/server.py": set(),

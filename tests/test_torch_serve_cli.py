@@ -117,6 +117,25 @@ def test_cli_launch_count_after_earlier_launches(coefficients_dir, rng,
     assert "fused_frames_launches=29" in err
 
 
+def test_cli_writes_the_serve_spans_with_a_trace_dir(
+        coefficients_dir, rng, capsys, monkeypatch, tmp_path):
+    """TOTTON_TRACE_DIR, the operator's trace switch, also records the
+    serve plane's spans: one Chrome trace, spans_<pid>_<ns>.json, holding
+    the dispatcher's, the reader's and the writer's spans."""
+    trace_dir = tmp_path / "traces"
+    monkeypatch.setenv("TOTTON_TRACE_DIR", str(trace_dir))
+    err = _serve_one_client(coefficients_dir, rng, capsys, monkeypatch, 0)
+    files = list(trace_dir.glob(f"spans_{os.getpid()}_*.json"))
+    assert len(files) == 1, files
+    assert f"spans written to {files[0]}" in err
+    trace = json.loads(files[0].read_text())
+    names = {e["name"] for e in trace["traceEvents"]}
+    assert {"serve.gather", "serve.enqueue", "serve.drain",
+            "serve.drain_wait", "serve.read", "serve.write",
+            "serve.send"} <= names
+    assert trace["tottonSpans"]["dropped"] == 0
+
+
 def test_shard_serve_exits_2(coefficients_dir, capsys):
     """--shard-serve exits 2 where no step width splits the slot rows
     evenly over the mesh (the JAX server's message): every width is a

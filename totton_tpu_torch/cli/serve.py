@@ -15,7 +15,10 @@ With --control-endpoint the server exposes the reference ZMQ command set
 RELOAD re-reads --config (EQ/phase) and swaps the shared filter under
 every active stream with a per-slot crossfade; PHASE_TYPE_SET flips
 min/linear the same way; SOFT_RESET zeroes stream histories; STATS
-merges the serve stats file.
+merges the serve stats file. With TOTTON_TRACE_DIR set, the server
+records the serve plane's spans (``utils/profiling.Spans``) and writes
+them on exit into that directory as ``spans_<pid>_<ns>.json``, a Chrome
+trace that Perfetto opens.
 
 Exit codes: 0 ok, 1 runtime failure, 2 bad arguments or no CUDA device,
 3 recycled (--recycle-rss-mb cap reached; the supervisor should restart).
@@ -332,6 +335,11 @@ def _serve(args, server, daemon, follower, serve_mod, path, loaded) -> int:
         if follower is not None:
             follower.stop()
         return 1
+    # The operator's trace switch (utils/profiling.trace_context): the
+    # serve plane's spans are recorded from here and written on stop.
+    trace_dir = os.environ.get("TOTTON_TRACE_DIR")
+    if trace_dir:
+        server.spans.start()
     print(f"Serving on {args.listen}: {args.max_streams} stream slots, "
           f"{args.rate} Hz -> {args.rate * loaded.ratio} Hz "
           f"({loaded.sidecar.taps} taps, {path}, device {server.device})",
@@ -373,6 +381,14 @@ def _serve(args, server, daemon, follower, serve_mod, path, loaded) -> int:
 
     server.wait(args.duration)
     server.stop()
+    if trace_dir:
+        import time as _time
+
+        server.spans.stop()
+        spans_path = server.spans.write_chrome(os.path.join(
+            trace_dir, f"spans_{os.getpid()}_{_time.monotonic_ns()}.json"))
+        print(f"Serve plane spans written to {spans_path} "
+              f"({server.spans.dropped} dropped)", file=sys.stderr)
     if daemon is not None:
         daemon.stop()
     if follower is not None:

@@ -51,6 +51,7 @@ semantics (alsa_streamer_main.cpp:301-303).
 
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import json
 import logging
@@ -93,6 +94,7 @@ from totton_tpu_torch.ops.overlap_save import (
     fold_bundles,
     make_block_step,
 )
+from totton_tpu_torch.utils.profiling import Spans
 
 log =logging.getLogger("totton.serve")
 
@@ -100,6 +102,39 @@ log =logging.getLogger("totton.serve")
 #: per band; this admits hundreds of bands while bounding a hostile
 #: length field)
 MAX_EQ_BLOCK_BYTES = 65536
+
+#: bucket edges (ms) of the server-wide block latency histogram
+#: (``ServeStats.block_latency``): 0.05 ms to 60 s in equal logarithmic
+#: steps, each at most 2% wide. Bucket 0 counts latencies below the first
+#: edge, bucket i those in [edge i-1, edge i), the last those of 60 s or
+#: more.
+LATENCY_EDGES_MS = np.geomspace(
+    0.05, 60000.0, int(np.ceil(np.log(60000.0 / 0.05) / np.log(1.02))) + 1
+).tolist()
+
+
+def latency_quantile(counts, q: float, max_ms: float) -> float | None:
+    """The q-quantile (0 <= q <= 1) of a block latency histogram
+    (``LATENCY_EDGES_MS``) as ``numpy.percentile`` interpolates it
+    (linearly between the order statistics around rank (count - 1) * q),
+    each order statistic read as the upper edge of its bucket and never
+    above ``max_ms``, the largest latency seen: within one bucket of the
+    exact value. None for an empty histogram."""
+    cum = np.cumsum(counts)
+    if cum.size == 0 or cum[-1] == 0:
+        return None
+    rank = (int(cum[-1]) - 1) * q
+    lo = int(np.floor(rank))
+
+    def order_stat(k: int) -> float:
+        i = int(np.searchsorted(cum, k + 1))
+        edge = LATENCY_EDGES_MS[i] if i < len(LATENCY_EDGES_MS) else max_ms
+        return min(edge, max_ms)
+
+    a = order_stat(lo)
+    if rank == lo:
+        return a
+    return a + (order_stat(lo + 1) - a) * (rank - lo)
 
 
 def process_rss_mb() -> float | None:
@@ -305,7 +340,18 @@ class ServeStats:
         #: dispatch count per "slots x blocks" shape (adaptive width/depth
         #: observability: shows what the chip actually ran)
         self.steps_by_shape: dict[str, int] = {}
+        #: every served block's input-ready -> output-queued latency, all
+        #: streams, untruncated: counts per LATENCY_EDGES_MS bucket
+        self.block_latency = [0] * (len(LATENCY_EDGES_MS) + 1)
+        self.block_latency_max_ms = 0.0
         self.start = time.monotonic()
+
+    def add_block_latencies(self, lat_ms) -> None:
+        """Count served blocks' latencies (ms); the caller holds lock."""
+        for v in lat_ms:
+            self.block_latency[bisect.bisect_right(LATENCY_EDGES_MS, v)] += 1
+            if v > self.block_latency_max_ms:
+                self.block_latency_max_ms = v
 
     def to_json(self, active: int, per_stream: list[dict]) -> dict:
         rss = process_rss_mb()
@@ -324,8 +370,18 @@ class ServeStats:
                 "avg_step_drain_ms": round(
                     self.drain_wall_s / self.steps * 1e3, 3)
                     if self.steps else None,
+                "block_latency_ms": self._latency_json(),
                 "per_stream": per_stream,
             }
+
+    def _latency_json(self) -> dict:
+        counts, top = self.block_latency, self.block_latency_max_ms
+        out = {"count": sum(counts)}
+        for name, q in (("p50", 0.5), ("p95", 0.95), ("p99", 0.99)):
+            v = latency_quantile(counts, q, top)
+            out[name] = round(v, 3) if v is not None else None
+        out["max"] = round(top, 3) if out["count"] else None
+        return out
 
 
 class RowSplit:
@@ -476,6 +532,12 @@ class StreamServer:
         self._threads: list[threading.Thread] = []
         #: wake the dispatcher when any slot becomes ready
         self._kick = threading.Event()
+        #: the serve plane's host spans (off until spans.start()): the
+        #: dispatcher's serve.{wait_input,gather,enqueue,upload,launch,
+        #: quantize,download,drain,drain_wait,housekeeping} keyed by step
+        #: number, the readers' serve.read and the writers' serve.write
+        #: and serve.send keyed by slot index and generation
+        self.spans = Spans()
 
     # -- connection handling ----------------------------------------------
 
@@ -625,6 +687,7 @@ class StreamServer:
         frame_bytes = self.channels * (4 if slot.fmt is None
                                        else slot.fmt.bytes)
         pending = b""
+        sp = self.spans
         try:
             while (not self._stop.is_set() and not slot.closing.is_set()
                    and slot.generation == gen):
@@ -657,6 +720,10 @@ class StreamServer:
                 if not usable:
                     continue
                 raw, pending = pending[:usable], pending[usable:]
+                # The span starts once recv returned: the wait inside it
+                # is the client's, not the server's.
+                tok = (sp.open("serve.read", slot.index, gen) if sp.on
+                       else -1)
                 if slot.fmt is None:
                     flat = np.frombuffer(raw, "<f4").astype(np.float32)
                 else:
@@ -674,9 +741,11 @@ class StreamServer:
                 if slot.eq_preamp != 1.0:
                     frames = frames * np.float32(slot.eq_preamp)
                 if slot.generation != gen:
+                    sp.close(tok)
                     break
                 slot.push_input(frames)
                 self._kick.set()
+                sp.close(tok)
         finally:
             if slot.generation == gen:
                 slot.note_eof_partial()
@@ -684,11 +753,15 @@ class StreamServer:
                 self._kick.set()
 
     def _writer(self, slot: StreamSlot, sock: socket.socket) -> None:
+        sp = self.spans
+        gen = slot.generation
         try:
             while True:
                 item = slot.out.get()
                 if item is None:
                     break
+                tok = (sp.open("serve.write", slot.index, gen) if sp.on
+                       else -1)
                 flat = interleave(item)
                 if flat.dtype == np.int16:
                     # Device-PCM serving: samples are already final s16
@@ -698,17 +771,23 @@ class StreamServer:
                     raw = flat.astype("<f4", copy=False).tobytes()
                 else:
                     raw = float_to_pcm(flat, slot.fmt)
+                send = (sp.open("serve.send", slot.index, gen, tok)
+                        if tok >= 0 else -1)
                 try:
                     sock.sendall(raw)  # TCP backpressure per stream
                 except OSError:
                     slot.closing.set()
+                    sp.close(send)
+                    sp.close(tok)
                     break
+                sp.close(send)
                 with slot.out_lock:
                     slot.out_blocks = max(
                         0, slot.out_blocks
                         - -(-item.shape[1] // slot.block_out))
                 slot.stats.frames_out += item.shape[1]
                 self._kick.set()
+                sp.close(tok)
         finally:
             self._detach(slot)
 
@@ -981,20 +1060,22 @@ class StreamServer:
         return handles, out
 
     def _drain_one(self, inflight: list) -> None:
-        y_dev, fades, served = inflight.pop(0)
+        y_dev, fades, served, step = inflight.pop(0)
+        sp = self.spans
+        drain = sp.open("serve.drain", step) if sp.on else -1
         # Decrement pending_steps for EVERY served slot up front: if the
         # device fetch below raises (runtime fault), no slot is left with
         # a phantom in-flight step that would block its release forever.
         for slot, *_rest in served:
             slot.pending_steps -= 1
-        t0 = time.monotonic()
+        # One pair of clock reads feeds drain_wall_s and the
+        # serve.drain_wait span, so the two always agree.
+        t0 = time.perf_counter_ns()
+        cpu0 = time.thread_time_ns() if drain >= 0 else 0
         try:
             # Wait on this step's download event only (never the whole
             # device): the other step in flight keeps running.
             y = fetch(y_dev)
-            if os.environ.get("TOTTON_SERVE_DEBUG_TIMING"):
-                log.warning("timing: drain %.1f ms (y %s %s)",
-                            (time.monotonic() - t0) * 1e3, y.shape, y.dtype)
             olds = {key: fetch(h) for key, h in fades.items()}
         except Exception:
             # Device fetch failed: these streams' audio now has a hole —
@@ -1002,8 +1083,12 @@ class StreamServer:
             for slot, *_rest in served:
                 self._cut(slot, "device step fetch failed")
             raise
+        cpu = time.thread_time_ns() - cpu0 if drain >= 0 else 0
+        t1 = time.perf_counter_ns()
+        if drain >= 0:
+            sp.add("serve.drain_wait", t0, t1, cpu, step, parent=drain)
         with self.stats.lock:
-            self.stats.drain_wall_s += time.monotonic() - t0
+            self.stats.drain_wall_s += (t1 - t0) * 1e-9
         for slot, r0, valid, ts, fade in served:
             if slot.sock is None or slot.closing.is_set():
                 continue  # stream gone mid-flight: discard its rows
@@ -1047,14 +1132,18 @@ class StreamServer:
                 self._cut(slot, "output queue stalled")
                 continue
             # Per-block latency: input-ready (block's last sample arrived)
-            # -> output-queued (just now). Reservoir-capped; dispatcher
-            # thread only.
+            # -> output-queued (just now). Reservoir-capped per stream
+            # (dispatcher thread only); the server-wide histogram keeps
+            # every block.
             now = time.monotonic()
-            slot.lat_ms.extend((now - t) * 1e3 for t in ts)
+            lat = [(now - t) * 1e3 for t in ts]
+            slot.lat_ms.extend(lat)
             if len(slot.lat_ms) > 512:
                 del slot.lat_ms[:len(slot.lat_ms) - 512]
             with self.stats.lock:
                 self.stats.frames_out += out.shape[1]
+                self.stats.add_block_latencies(lat)
+        sp.close(drain)
 
     def _finish_eof_slots(self) -> None:
         """Tell writers of fully-drained EOF streams to finish. A slot is
@@ -1093,6 +1182,8 @@ class StreamServer:
         inflight: list[tuple] = []
         last_stats = 0.0
         failures = 0
+        sp = self.spans
+        step = 0  # the next step's number: the key of its spans
 
         while not self._stop.is_set():
             # Guard the whole iteration: an unexpected error (e.g. a CUDA
@@ -1104,19 +1195,28 @@ class StreamServer:
             try:
                 # Queued control changes (set_eq / load_filter /
                 # soft_reset) land at step boundaries, never mid-step.
+                tok = sp.open("serve.housekeeping", step) if sp.on else -1
                 self._apply_pending_control()
+                sp.close(tok)
+                tok = sp.open("serve.gather", step) if sp.on else -1
                 batch = self._gather()
+                sp.close(tok)
                 if batch is None:
                     while inflight:
                         self._drain_one(inflight)
+                    tok = (sp.open("serve.housekeeping", step) if sp.on
+                           else -1)
                     self._finish_eof_slots()
                     self._release_detached_slots()
                     now = time.monotonic()
                     if now - last_stats > 0.5:
                         self._write_stats()
                         last_stats = now
+                    sp.close(tok)
+                    tok = sp.open("serve.wait_input", step) if sp.on else -1
                     if self._kick.wait(timeout=0.05):
                         self._kick.clear()
+                    sp.close(tok)
                     # NB: failures does NOT reset here — idle iterations
                     # say nothing about the device. Only a successful
                     # dispatch clears the strike count, so a persistent
@@ -1125,24 +1225,33 @@ class StreamServer:
                     # cutting every future client forever.
                     continue
                 x, tails, served = batch
+                enq = sp.open("serve.enqueue", step) if sp.on else -1
                 try:
-                    _t0 = time.monotonic()
+                    tok = (sp.open("serve.upload", step, parent=enq)
+                           if enq >= 0 else -1)
                     tj, xj = self._to_device(tails), self._to_device(x)
+                    sp.close(tok)
+                    tok = (sp.open("serve.launch", step, parent=enq)
+                           if enq >= 0 else -1)
                     y_dev, _ = self._step(tj, xj, self._bundle)
-                    _t1 = time.monotonic()
                     fades, served = self._dispatch_fades(tj, xj, served)
-                    if os.environ.get("TOTTON_SERVE_DEBUG_TIMING"):
-                        log.warning("timing: dispatch %.1f ms (x %s)",
-                                    (_t1 - _t0) * 1e3, x.shape)
+                    sp.close(tok)
                     if self.device_pcm and not fades:
                         # Elementwise on-device quantize so the drain
                         # moves int16. Fade steps keep float and
                         # quantize on the host after mixing.
+                        tok = (sp.open("serve.quantize", step, parent=enq)
+                               if enq >= 0 else -1)
                         y_dev = _dp.quantize_s16(y_dev)
+                        sp.close(tok)
                     # Queue the downloads into pinned memory now, each
                     # behind its own event; _drain_one waits on them.
+                    tok = (sp.open("serve.download", step, parent=enq)
+                           if enq >= 0 else -1)
                     y_dev = download(y_dev)
                     fades = {key: download(h) for key, h in fades.items()}
+                    sp.close(tok)
+                    sp.close(enq)
                 except Exception:
                     # The gathered slots' pending_steps were already
                     # incremented and their input consumed; without this
@@ -1154,7 +1263,8 @@ class StreamServer:
                         slot.pending_steps -= 1
                         self._cut(slot, "step dispatch failed")
                     raise
-                inflight.append((y_dev, fades, served))
+                inflight.append((y_dev, fades, served, step))
+                step += 1
                 shape_key = (f"{x.shape[0] // self.channels}x"
                              f"{x.shape[1] // self.config.block_in}")
                 with self.stats.lock:
@@ -1163,6 +1273,7 @@ class StreamServer:
                         self.stats.steps_by_shape.get(shape_key, 0) + 1)
                 while len(inflight) > depth:
                     self._drain_one(inflight)
+                tok = sp.open("serve.housekeeping", step) if sp.on else -1
                 self._finish_eof_slots()
                 self._release_detached_slots()
                 # Stats refresh on the BUSY path too (same 0.5 s throttle):
@@ -1172,6 +1283,7 @@ class StreamServer:
                 if now - last_stats > 0.5:
                     self._write_stats()
                     last_stats = now
+                sp.close(tok)
                 failures = 0
             except Exception:
                 log.exception("serve: dispatcher iteration failed")
@@ -1179,7 +1291,7 @@ class StreamServer:
                 # Steps still in flight are unsalvageable here; release
                 # their slots' in-flight accounting and cut those streams
                 # (their audio has a hole anyway) so the slots recycle.
-                for _y_dev, _fades, served in inflight:
+                for _y_dev, _fades, served, _step in inflight:
                     for slot, *_rest in served:
                         slot.pending_steps -= 1
                         self._cut(slot, "dispatcher failure")
