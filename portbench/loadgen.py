@@ -216,14 +216,24 @@ class Stream:
         return out
 
 
-def block_p95_ms(streams: list[dict]) -> float | None:
-    """The 95th percentile of the latency of every block due in the
+def _block_percentile_ms(streams: list[dict], q: float) -> float | None:
+    """The ``q``-th percentile of the latency of every block due in the
     window (``Stream.result``), in ms; a block that never came counts as
-    1e6 ms, later than any limit. None where no block was due."""
+    1e3 s, later than any limit. None where no block was due."""
     lat = np.concatenate([s["block_lat_s"] for s in streams])
     if lat.size == 0:
         return None
-    return float(np.percentile(np.where(np.isinf(lat), 1e3, lat), 95) * 1e3)
+    return float(np.percentile(np.where(np.isinf(lat), 1e3, lat), q) * 1e3)
+
+
+def block_p95_ms(streams: list[dict]) -> float | None:
+    """The 95th percentile of the window's block latency, in ms."""
+    return _block_percentile_ms(streams, 95)
+
+
+def block_p50_ms(streams: list[dict]) -> float | None:
+    """The median of the window's block latency, in ms."""
+    return _block_percentile_ms(streams, 50)
 
 
 def socket_queues(sock: socket.socket) -> str:

@@ -12,7 +12,10 @@ through a warm-up, the measured window and an untimed drain, and the
 reference judges what the clients received (``compare.py``). With
 ``--trace 0`` the line carries the cell's end-to-end metrics, with
 ``--trace 1`` its per-layer metrics; each metric is read by
-``metrics/<name>.py``.
+``metrics/<name>.py``. A traced run switches the serve plane's spans on
+(``StreamServer.spans``) over its profiler windows only, after the
+measured window, and prints the device's idle time by the dispatcher's
+span on its ``run:`` line.
 
 Two more modes serve the benchmark's own calibration and are never run by
 a check: ``--control`` also reads the control (the reference in TF32, put
@@ -49,6 +52,8 @@ BANNED = ("jax", "jaxlib", "flax", "totton_tpu")
 #: traffic after the measured window
 TRACE_WINDOW_S = 2.5
 TRACE_AFTER_S = 12.0
+#: the devices whose runs the profiler traces
+PROFILED = ("cuda",)
 
 
 def log(msg: str) -> None:
@@ -176,10 +181,18 @@ def _stack(frame, depth: int = 6) -> list:
 
 
 def snapshot(server) -> dict:
+    """The server's counters now, the server-wide block latency histogram
+    where the server keeps one, the time (``perf_counter_ns``) and the
+    offset of the profiler's wall clock to it, read back to back."""
     st = server.stats
     with st.lock:
-        return dict(steps=st.steps, steps_by_shape=dict(st.steps_by_shape),
+        snap = dict(steps=st.steps, steps_by_shape=dict(st.steps_by_shape),
                     drain_wall_s=st.drain_wall_s, frames_out=st.frames_out)
+        if hasattr(st, "block_latency"):
+            snap["block_latency"] = list(st.block_latency)
+    snap["t_ns"] = time.perf_counter_ns()
+    snap["clock_offset_ns"] = time.time_ns() - time.perf_counter_ns()
+    return snap
 
 
 def delta(a: dict, b: dict) -> dict:
@@ -216,7 +229,8 @@ def drive(server, cell: dict, port: int, seed: int, seconds: float,
     traffic in which ``after(we, end)`` runs on this thread (a traced
     run's profiler), then every stream ends its input and reads its reply
     to the end. Returns the streams' results, the window's bounds and the
-    server's counters and CPU time over the window."""
+    server's counters (and their snapshots at either end, ``measured``)
+    and CPU time over the window."""
     from portbench import audio
 
     traffic, config = cell["traffic"], cell["config"]
@@ -281,6 +295,7 @@ def drive(server, cell: dict, port: int, seed: int, seconds: float,
                 p.wait()
     return dict(streams=streams, ws=ws, we=we, late_start_s=t_ws - ws,
                 late_end_s=t_we - we, window=delta(s0, s1),
+                measured=(s0, s1),
                 cpu_s=(cpu1.user + cpu1.system) - (cpu0.user + cpu0.system),
                 extra=extra)
 
@@ -290,26 +305,27 @@ def drive(server, cell: dict, port: int, seed: int, seconds: float,
 
 def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
              device: str = "cuda", control: bool = False, fault=None,
-             t0: float = T_START) -> dict:
+             t0: float = T_START, out: dict | None = None) -> dict:
     """One run of ``cell``; returns the result line's object. ``t0`` is
-    when the run's process started; ``fault`` (tests) is called with the
-    server before it starts."""
+    when the run's process started; ``fault`` (tests, ``spanrun``) is
+    called with the server before it starts; ``out``, where given, is
+    filled with the run's ``ctx``, what the metric readers read."""
     traffic = cell["traffic"]
     clients = clients_of(traffic, cell["workload"]["config"])
     all_cores = os.sched_getaffinity(0)
     cores = pin_server(traffic)
     try:
         return _run_cell(cell, seed, seconds, trace, device, control, fault,
-                         t0, clients, cores)
+                         t0, clients, cores, out)
     finally:
         os.sched_setaffinity(0, all_cores)
 
 
 def _run_cell(cell, seed, seconds, trace, device, control, fault, t0,
-              clients, cores) -> dict:
+              clients, cores, out) -> dict:
     import torch
 
-    from portbench import compare, reference, trace as tr
+    from portbench import compare, reference, spans, trace as tr
 
     config, traffic = cell["config"], cell["traffic"]
     flags = config["serve_flags"]
@@ -318,18 +334,27 @@ def _run_cell(cell, seed, seconds, trace, device, control, fault, t0,
     if fault is not None:
         fault(server)
     server.start()
-    traced = trace and device == "cuda"
+    traced = trace and device in PROFILED
+    sp = getattr(server, "spans", None)
     if traced:
         tr.warm_profiler()
     if device == "cuda":
         torch.cuda.synchronize()
 
     def after(we, end):
-        # The profiler runs after the window, under the same traffic, so
-        # that the window's counters are read untraced; the first of its
-        # windows that kept every record is read.
-        return tr.take_windows(TRACE_WINDOW_S, 3, lambda: snapshot(server),
-                               end - 0.1)
+        # The profiler and the spans run after the window, under the same
+        # traffic, so that the window's counters are read untraced; the
+        # first of its windows that kept every record is read. Spans
+        # switched on before the server started (``spanrun``) stay on.
+        started = sp is not None and not sp.on
+        if started:
+            sp.start()
+        try:
+            return tr.take_windows(TRACE_WINDOW_S, 3,
+                                   lambda: snapshot(server), end - 0.1)
+        finally:
+            if started:
+                sp.stop()
 
     try:
         run = drive(server, cell, port, seed, seconds, clients, cores,
@@ -337,6 +362,7 @@ def _run_cell(cell, seed, seconds, trace, device, control, fault, t0,
                     TRACE_AFTER_S if traced else 0.0)
         if any(s["error"] is not None for s in run["streams"]):
             log_slots(server)
+        span_snap = sp.snapshot() if traced and sp is not None else None
     finally:
         memory_peak = (torch.cuda.max_memory_allocated()
                        if device == "cuda" else 0)
@@ -366,7 +392,10 @@ def _run_cell(cell, seed, seconds, trace, device, control, fault, t0,
     ctx = dict(cell=cell, config=config, traffic=traffic, seconds=seconds,
                setup_s=setup_s, streams=streams, window=run["window"],
                cpu_s=run["cpu_s"], out_samples=out_samples,
-               trace=run["extra"], paced=paced)
+               trace=run["extra"], paced=paced, spans=span_snap,
+               measured=run["measured"])
+    if out is not None:
+        out.update(ctx)
     metrics = {}
     for m in metrics_of(cell, trace):
         value = load_reader(cell["pkg"], m["name"])(ctx)
@@ -398,6 +427,14 @@ def _run_cell(cell, seed, seconds, trace, device, control, fault, t0,
                 steps_by_shape=run["window"]["steps_by_shape"],
                 late_start_s=run["late_start_s"],
                 late_end_s=run["late_end_s"])
+    if span_snap is not None:
+        info["spans"] = dict(dropped=span_snap["dropped"],
+                             records=int(span_snap["num"].size))
+        win = spans.window_of(ctx)
+        idle = None if win is None else win.idle_by_span()
+        if idle is not None:
+            info["idle_by_span"] = {k: v / 1e6 for k, v in sorted(
+                idle.items(), key=lambda kv: -kv[1])}
     if control_checks is not None:
         info["control"] = control_checks
     result["info"] = info

@@ -1,25 +1,21 @@
-"""A cell's run with the serve plane's spans on, and the span metrics.
+"""A cell's run with the serve plane's spans read in detail.
 
     python3 -m portbench.spanrun --workload <cell> --seed <n> \\
         --seconds <s> [--trace 0|1] [--spans after|all] \\
         [--traffic <mix>] [--chrome <path>]
 
 from the root of a checkout on a machine with an NVIDIA card. The run is
-``run.run_cell``'s, the harness unchanged: this module hooks its counter
-snapshots (``run.snapshot``, to add the server-wide block latency
-histogram, the time of each snapshot and the offset of the profiler's
-wall clock to ``perf_counter``) and its profiler windows
-(``trace.take_windows``, to switch the spans on around them), and takes
-the server from the hook ``run_cell`` calls before the server starts.
+``run.run_cell``'s, the harness unchanged; this module takes the server
+and the run's ``ctx`` from it (``fault`` and ``out``).
 
-- ``--spans after`` (the default): the spans are on over the profiler
-  windows that follow the measured window of a ``--trace 1`` run, and the
-  span metrics read the window ``trace.pick_window`` chose, device trace
-  and all (``window``).
+- ``--spans after`` (the default): the spans as ``run.py`` itself
+  switches them, on over the profiler windows that follow the measured
+  window of a ``--trace 1`` run; read over the window
+  ``trace.pick_window`` chose, device trace and all (``window``).
 - ``--spans all``: on from before the server's first step; the span
   metrics also read the measured window (``measured``, host spans only).
-  Against ``run.py``'s own run of the same cell (spans never on) it
-  gives the cost of recording spans.
+  Against ``run.py``'s own run of the same cell (spans off over the
+  measured window) it gives the cost of recording spans.
 
 ``--traffic`` runs another mix of ``traffic/`` in the cell's place (the
 bulk mix). Prints one JSON line: the run's result line under ``result``
@@ -37,12 +33,10 @@ import time
 T_START = time.monotonic()
 
 import argparse  # noqa: E402
-import contextlib  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 
 from portbench import run, spans  # noqa: E402
-from portbench import trace as tr  # noqa: E402
 
 #: the span metrics (``metrics/<name>.py``), each read from ``ctx["spans"]``
 #: and ``ctx["trace"]``
@@ -53,39 +47,6 @@ METRICS = ("serve.gather_ms", "serve.enqueue_ms", "serve.drain_host_ms",
            "device.quantize_us_per_step")
 #: records the ring holds when the spans are on for a whole run
 ALL_RUN_CAPACITY = 1 << 20
-
-
-@contextlib.contextmanager
-def _hooked(mode: str, seen: dict):
-    """``run.snapshot`` and ``trace.take_windows`` wrapped for one run."""
-    snapshot, take_windows = run.snapshot, tr.take_windows
-
-    def hooked_snapshot(server):
-        snap = snapshot(server)
-        st = server.stats
-        with st.lock:
-            hist = list(getattr(st, "block_latency", []))
-        snap = dict(snap, block_latency=hist, t_ns=time.perf_counter_ns(),
-                    clock_offset_ns=time.time_ns() - time.perf_counter_ns())
-        seen["snapshots"].append(snap)
-        return snap
-
-    def hooked_take_windows(seconds, count, snap, until):
-        server = seen["server"]
-        if mode == "after":
-            server.spans.start()
-        try:
-            seen["windows"] = take_windows(seconds, count, snap, until)
-        finally:
-            if mode == "after":
-                server.spans.stop()
-        return seen["windows"]
-
-    run.snapshot, tr.take_windows = hooked_snapshot, hooked_take_windows
-    try:
-        yield
-    finally:
-        run.snapshot, tr.take_windows = snapshot, take_windows
 
 
 def readings(cell: dict, snap: dict, window: dict) -> dict:
@@ -131,7 +92,7 @@ def run_with_spans(cell: dict, seed: int, seconds: float, trace: bool,
     returns the printed object."""
     if mode not in ("after", "all"):
         raise ValueError(f"spans mode {mode!r}")
-    seen: dict = dict(snapshots=[], windows=None, server=None)
+    seen: dict = dict(server=None)
 
     def capture(server):
         seen["server"] = server
@@ -141,28 +102,21 @@ def run_with_spans(cell: dict, seed: int, seconds: float, trace: bool,
             server.spans = Spans(ALL_RUN_CAPACITY)
             server.spans.start()
 
-    with _hooked(mode, seen):
-        result = run.run_cell(cell, seed, seconds, trace, device=device,
-                              fault=capture, t0=t0)
+    ctx: dict = {}
+    result = run.run_cell(cell, seed, seconds, trace, device=device,
+                          fault=capture, t0=t0, out=ctx)
     server = seen["server"]
     server.spans.stop()
     snap = server.spans.snapshot()
     out = dict(result=result, info=result.pop("info"),
                spans=dict(mode=mode, dropped=snap["dropped"],
                           records=int(snap["num"].size)))
-    s0, s1 = seen["snapshots"][:2]
     if mode == "all":
+        s0, s1 = ctx["measured"]
         out["spans"]["measured"] = readings(cell, snap, dict(
             bounds_ns=(s0["t_ns"], s1["t_ns"]), before=s0, after=s1))
-    if seen["windows"]:
-        picked = tr.pick_window(seen["windows"], run.log)
-        if picked is not None:
-            w = seen["windows"][picked["attempt"] - 1]
-            dev = spans.device_window(w) or dict(
-                bounds_ns=(int(round(w["t0"] * 1e9)),
-                           int(round(w["t1"] * 1e9))))
-            out["spans"]["window"] = readings(cell, snap, dict(
-                dev, before=w["before"], after=w["after"]))
+    if ctx["trace"] is not None:
+        out["spans"]["window"] = readings(cell, snap, ctx["trace"])
     if chrome:
         server.spans.write_chrome(chrome)
     return out

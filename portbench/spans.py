@@ -83,8 +83,8 @@ def device_window(w: dict) -> dict | None:
     "clock"): exact to a microsecond, where the marker's launch trails its
     host time by the Python dispatch of one op, and by a wait for the GIL
     on a busy host (``marker_delay_ns``). Else the marker's runtime launch
-    record ("launch"), else, as ``trace.reduce_window`` does, the marker
-    kernel's start, a few us later still ("kernel"). None where the
+    record ("launch"), else the marker kernel's start, a few us later
+    still ("kernel"). None where the
     marker's record is missing."""
     from torch.autograd import DeviceType
 

@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import json
 import shutil
+import time
 
 import pytest
 import torch
@@ -89,3 +90,51 @@ def test_no_card_no_result(capsys):
                    "--seconds", "1", "--trace", "0"])
     assert rc != 0
     assert capsys.readouterr().out == ""
+
+
+def test_traced_run_records_spans_only_after_the_window(tiny_cell,
+                                                        monkeypatch):
+    """A ``--trace 1``-shaped run on the CPU (the profiler's windows
+    stood in for by a wait under the same traffic): the spans are off
+    over the measured window, on over the windows, off again before the
+    drain, and ``ctx["spans"]`` holds what they recorded. An untraced run
+    records none."""
+    from portbench import trace
+
+    state = {}
+
+    def windows(seconds, count, snapshot, until):
+        state["on"] = state["server"].spans.on
+        time.sleep(1.0)
+        return []
+
+    monkeypatch.setattr(run, "PROFILED", ("cuda", "cpu"))
+    monkeypatch.setattr(run, "TRACE_AFTER_S", 2.0)
+    monkeypatch.setattr(trace, "warm_profiler", lambda: None)
+    monkeypatch.setattr(trace, "take_windows", windows)
+    ctx = {}
+    r = run.run_cell(tiny_cell("serve8k.live"), 2**32 + 4321, 1.5, True,
+                     device="cpu", fault=lambda s: state.update(server=s),
+                     out=ctx)
+    assert r["correct"] is True and state["on"] is True
+    # The measured window's block latency is read in a traced run too.
+    lat = r["metrics"]
+    assert 0 < lat["block_p50_ms"]["value"] <= lat["block_p95_ms"]["value"]
+    assert state["server"].spans.on is False
+    snap = ctx["spans"]
+    assert snap["dropped"] == 0 and snap["num"].size > 0
+    # Nothing opened before the measured window's end was recorded.
+    assert snap["t0"].min() >= ctx["measured"][1]["t_ns"]
+    assert "serve.gather" in {snap["names"][i] for i in snap["name"]}
+    assert r["info"]["spans"] == dict(dropped=0,
+                                      records=int(snap["num"].size))
+    for s in ctx["measured"]:
+        assert len(s["block_latency"]) > 0 and "clock_offset_ns" in s
+
+    ctx = {}
+    r = run.run_cell(tiny_cell("serve8k.live"), 2**32 + 4321, 1.5, False,
+                     device="cpu", fault=lambda s: state.update(server=s),
+                     out=ctx)
+    assert r["correct"] is True and ctx["spans"] is None
+    assert "spans" not in r["info"]
+    assert state["server"].spans.snapshot()["num"].size == 0

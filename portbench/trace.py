@@ -6,10 +6,11 @@ dispatcher thread is doing. Kineto drops device records now and then, all
 of a window's or the late ones (C13), so a run takes several windows and
 reads the first whose records of the frame kernel's last launch are as
 many as the frame-kernel dispatches the program counted over it
-(``fused_frames.LAUNCHES``). From that window come: the seconds some
-kernel, copy or memset ran on the device (the union of their intervals),
-the kernels' summed time by name, and the longest idle gaps, each named by
-what the dispatcher was doing in most of the samples that fall in it.
+(``fused_frames.LAUNCHES``). From that window, placed on the host's clock
+(``spans.device_window``), come: the seconds some kernel, copy or memset
+ran on the device (the union of their intervals), the kernels' summed time
+by name, and the longest idle gaps, each named by what the dispatcher was
+doing in most of the samples that fall in it.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import os
 import sys
 import threading
 import time
+
+from portbench import spans
 
 #: a frame kernel's records (``csrc/fused_frames.cu``): the resident plan's
 #: one launch, or the stages of the three-launch plan
@@ -33,50 +36,31 @@ def _is_copy(name: str) -> bool:
     return name.startswith(("Memcpy", "Memset"))
 
 
-def _union(intervals: list[tuple[float, float]]) -> list[tuple[float, float]]:
-    merged: list[list[float]] = []
-    for a, b in sorted(intervals):
-        if merged and a <= merged[-1][1]:
-            merged[-1][1] = max(merged[-1][1], b)
-        else:
-            merged.append([a, b])
-    return [(a, b) for a, b in merged]
-
-
 def reduce_window(w: dict) -> dict | None:
-    """A window's device numbers, its device intervals clipped to the host
-    interval [t0, t1] through the marker; None where the marker's record
-    is missing."""
-    from torch.autograd import DeviceType
-
-    device = [(e.name, e.time_range.start, e.time_range.end)
-              for e in w["prof"].events()
-              if e.device_type == DeviceType.CUDA]
-    marks = sorted(a for n, a, _b in device if "FillFunctor" in n)
-    others = sorted(a for n, a, _b in device if "FillFunctor" not in n)
-    if not marks or not others:
+    """A window's device numbers, on the host's clock
+    (``spans.device_window``: the offset from the first counter
+    snapshot's ``clock_offset_ns`` where the marker agrees with it, else
+    from the marker), its device records clipped to the host interval
+    [t0, t1]; None where the marker's record is missing. Besides the
+    seconds busy and the kernels' time, it returns the window's
+    ``offset_ns``, ``bounds_ns``, ``busy_ns`` (the busy intervals) and
+    ``kernels`` (the device records), which the span metrics read."""
+    dev = spans.device_window(w)
+    if dev is None:
         return None
-    # trace us = host s * 1e6 + offset (a marker starts a few us after its
-    # launch on an idle side stream). A lone marker is the first where it
-    # precedes most of the window's records, else the last.
-    lone_first = marks[0] < others[len(others) // 2]
-    which = 0 if len(marks) == 2 or lone_first else 1
-    offset = marks[0] - w["marks"][which] * 1e6
-    lo, hi = w["t0"] * 1e6 + offset, w["t1"] * 1e6 + offset
-    device = [(n, max(a, lo), min(b, hi)) for n, a, b in device
-              if b > lo and a < hi and "FillFunctor" not in n]
-    busy = _union([(a, b) for _n, a, b in device])
+    lo, hi = dev["bounds_ns"]
+    busy = dev["busy_ns"]
     by_name: dict[str, float] = {}
-    for n, a, b in device:
+    for n, a, b, _launch in dev["kernels"]:
         if not _is_copy(n):
-            by_name[n] = by_name.get(n, 0.0) + (b - a) * 1e-6
+            by_name[n] = by_name.get(n, 0.0) + (b - a) * 1e-9
     edges = [lo] + [x for iv in busy for x in iv] + [hi]
     gaps = sorted(zip(edges[0::2], edges[1::2]), key=lambda g: g[0] - g[1])
     named = []
     for g0, g1 in gaps[:10]:
         seen: dict[str, int] = {}
         for t, label in w["samples"]:
-            if g0 <= t * 1e6 + offset < g1:
+            if g0 <= t * 1e9 < g1:
                 seen[label] = seen.get(label, 0) + 1
         if seen:
             top = max(seen, key=seen.get)
@@ -84,15 +68,16 @@ def reduce_window(w: dict) -> dict | None:
             label = f"dispatcher in {top} ({share:.0f}% of samples)"
         else:
             label = "dispatcher not sampled"
-        named.append([label, (g1 - g0) * 1e-6])
+        named.append([label, (g1 - g0) * 1e-9])
     frame_s = sum(v for n, v in by_name.items()
                   if any(k in n for k in FRAME_KERNELS))
     return dict(
+        dev,
         window_s=w["t1"] - w["t0"],
-        busy_s=sum(b - a for a, b in busy) * 1e-6,
+        busy_s=sum(b - a for a, b in busy) * 1e-9,
         kernel_s=sum(by_name.values()),
         frame_kernel_s=frame_s,
-        last_launches=sum(1 for n, _a, _b in device
+        last_launches=sum(1 for n, _a, _b, _l in dev["kernels"]
                           if any(k in n for k in LAST_LAUNCH)),
         device_ops=sorted(([n[:160], v] for n, v in by_name.items()),
                           key=lambda x: -x[1])[:10],
