@@ -142,7 +142,9 @@ class Spans:
     thread's id, and two integers of the caller's: ``key`` (the serve
     plane's step number, or a reader's or writer's slot index) and
     ``gen`` (the slot's generation; -1 where there is none). Records are
-    numbered in the order they open.
+    numbered in the order they open. Where the thread CPU clock is coarse
+    (under gVisor it steps by 10 ms), a span's ``cpu`` is a sample, true
+    only summed over many spans.
 
     Clock: ``perf_counter_ns`` reads CLOCK_MONOTONIC on Linux, the clock
     of ``time.perf_counter()`` and ``time.monotonic()``. The benchmark's
