@@ -27,6 +27,14 @@ cores, which they get to themselves), ``track_s`` (a stream's length range),
 ends) and ``capture`` (the segments kept: ``frames`` long, one every
 ``every_s`` seconds of output, seeded).
 
+Every schedule runs at the configuration's input rate
+(``geometry["rate"]``, its ``serve_flags.rate``): the track length, the
+phase spread, a period's length, a block's due time, a burst and the
+capture spacing are seconds of audio at that rate. The samples sent are
+``audio.py``'s at every rate, so at another rate than ``audio.RATE`` a
+tone's stated Hz scale by rate / 44100; the serve plane's work does not
+depend on the content.
+
 What a stream received is counted by arrival time; seeded segments of it
 (and its first and last frames) are kept for the reference to judge.
 """
@@ -52,6 +60,13 @@ from portbench import audio, wire
 RECV_BYTES = 1 << 20
 
 
+def pace(traffic: dict, rate: int) -> tuple[int, float]:
+    """(a closed-loop burst in frames, a paced period in seconds) at
+    ``rate`` frames a second."""
+    return (int(traffic.get("burst_s", 1.0) * rate),
+            (traffic.get("period_frames", 0) or 1) / rate)
+
+
 class Stream:
     """One client stream's socket, schedule and record."""
 
@@ -60,15 +75,15 @@ class Stream:
         self.index, self.seed = index, seed
         self.fmt = plan["wire"]
         self.channels = geo["channels"]
-        self.ratio = geo["ratio"]
+        self.ratio, self.rate = geo["ratio"], geo["rate"]
         self.block_in, self.block_out = geo["block_in"], geo["block_size"]
         self.in_bytes = self.channels * wire.FORMATS[self.fmt][1]
         self.out_bytes = self.in_bytes  # the reply keeps the wire format
         rng = np.random.default_rng([seed, 2])
         self.track_frames = int(rng.uniform(*traffic.get(
-            "track_s", (3600.0, 3600.0))) * audio.RATE)
+            "track_s", (3600.0, 3600.0))) * self.rate)
         spread = traffic.get("phase_spread_blocks", 0.0) * self.block_in
-        self.phase_s = float(rng.uniform(0.0, spread / audio.RATE))
+        self.phase_s = float(rng.uniform(0.0, spread / self.rate))
         self.sock: socket.socket | None = None
         self.want = selectors.EVENT_READ  # the selector's interest
         self.error: str | None = None
@@ -95,7 +110,7 @@ class Stream:
         # seeded capture of output segments
         cap = plan["capture"]
         self.seg_frames = int(cap["frames"])
-        every = float(cap["every_s"]) * audio.RATE * self.ratio
+        every = float(cap["every_s"]) * self.rate * self.ratio
         starts, a = [0], 0.0
         horizon = self.track_frames * self.ratio
         while a < horizon and len(starts) < 4096:
@@ -203,7 +218,7 @@ class Stream:
             while True:
                 last = (b + 1) * self.block_in - 1
                 d = t0_sched + self.phase_s + (last // self.period) \
-                    * self.period / audio.RATE
+                    * self.period / self.rate
                 if d >= we:
                     break
                 if d >= ws:
@@ -272,8 +287,7 @@ def run(plan: dict, schedule_in) -> list[dict]:
     sel = selectors.DefaultSelector()
     for st in streams:
         sel.register(st.sock, selectors.EVENT_READ, st)
-    burst = int(traffic.get("burst_s", 1.0) * audio.RATE)
-    period_s = (traffic.get("period_frames", 0) or 1) / audio.RATE
+    burst, period_s = pace(traffic, geo["rate"])
     heap = [(start + st.phase_s, i) for i, st in enumerate(streams)]
     heapq.heapify(heap)
     rbuf = bytearray(RECV_BYTES)

@@ -101,6 +101,14 @@ def clients_of(traffic: dict, config_name: str) -> int:
     return int(n[config_name] if isinstance(n, dict) else n)
 
 
+def offered_samples_per_s(config: dict, clients: int) -> int:
+    """The output samples a second that ``clients`` paced streams ask
+    for: each sends the configuration's rate, answered by ratio frames of
+    every channel."""
+    flags = config["serve_flags"]
+    return clients * flags["channels"] * flags["rate"] * config["ratio"]
+
+
 # -- the server under test ------------------------------------------------
 
 
@@ -422,7 +430,11 @@ def _run_cell(cell, seed, seconds, trace, device, control, fault, t0,
         dev.update(busy_s=t["busy_s"], window_s=t["window_s"])
         result["breakdown"] = dict(device_ops=t["device_ops"],
                                    idle_gaps=t["idle_gaps"])
-    info = dict(segments=n_seg, check_s=time.monotonic() - t_check,
+    info = dict(out_samples_per_s=out_samples / seconds)
+    if paced:
+        info["offered_samples_per_s"] = offered_samples_per_s(config,
+                                                              clients)
+    info.update(segments=n_seg, check_s=time.monotonic() - t_check,
                 steps=run["window"]["steps"],
                 steps_by_shape=run["window"]["steps_by_shape"],
                 late_start_s=run["late_start_s"],
@@ -470,8 +482,7 @@ def sweep(cell: dict, seed: int, seconds: float, counts: list[int]) -> None:
             late = np.concatenate([s["late_s"] for s in streams]) * 1e3
             w = run["window"]
             flags = cell["config"]["serve_flags"]
-            offered = n * flags["channels"] * flags["rate"] \
-                * cell["config"]["ratio"]
+            offered = offered_samples_per_s(cell["config"], n)
             delivered = sum(s["window_samples"] for s in streams) / seconds
             # Sustained: the offered load delivered, the median block
             # within one block period, and no growing backlog (the blocks
