@@ -59,6 +59,10 @@ SEAMS = {
         # The readers' serve.read and the writers' serve.write and
         # serve.send spans (StreamServer.spans).
         "StreamServer._reader", "StreamServer._writer",
+        # The gather times the halo's host work (the tails array, each
+        # served slot's tail copy, join and cut) for serve.gather_halo and
+        # returns those intervals with the batch.
+        "StreamServer._gather",
     },
     # The warm-up imports the port's fade widths. The threaded session's
     # loop reads the end-of-input flag before the input ring's fill (the

@@ -1,7 +1,8 @@
 """The serve plane's spans and its block latency histogram, on the CPU: a
 StreamServer(device="cpu") serves two clients with spans on; every step
 has its gather, enqueue and drain under one step number, each child inside
-its parent; the drain waits sum to the drain_wall_s counter; the readers
+its parent (the halo's gather and upload inside the step's gather and
+upload); the drain waits sum to the drain_wall_s counter; the readers
 and writers record under their slot and generation; and the histogram's
 quantiles stay within one bucket of numpy's over the same latencies."""
 
@@ -23,7 +24,10 @@ torch.set_num_threads(2)
 RATE = 44100
 CHILDREN = {"serve.upload": "serve.enqueue", "serve.launch": "serve.enqueue",
             "serve.download": "serve.enqueue",
-            "serve.drain_wait": "serve.drain", "serve.send": "serve.write"}
+            "serve.drain_wait": "serve.drain", "serve.send": "serve.write",
+            "serve.gather_halo": "serve.gather",
+            "serve.upload_halo": "serve.upload",
+            "serve.upload_input": "serve.upload"}
 
 
 def _filter(taps=33, fft=256, ratio=4, seed=5):
@@ -99,7 +103,9 @@ def test_every_step_has_gather_enqueue_and_drain(served):
     steps = set(snap["key"][names == "serve.enqueue"].tolist())
     assert len(steps) == srv.stats.steps > 0
     for name in ("serve.gather", "serve.drain", "serve.upload",
-                 "serve.launch", "serve.download", "serve.drain_wait"):
+                 "serve.launch", "serve.download", "serve.drain_wait",
+                 "serve.gather_halo", "serve.upload_halo",
+                 "serve.upload_input"):
         assert steps <= set(snap["key"][names == name].tolist()), name
     # No device PCM here: nothing quantizes on the device.
     assert "serve.quantize" not in set(names.tolist())

@@ -8,25 +8,31 @@ even/odd interleave written in place.
 
 Design for an H100: every DFT is a batch of short Stockham FFTs in
 shared memory (the .cu header has the algebra). ``kernel_plan`` picks one
-of two plans from the geometry alone:
+of three plans from the geometry alone:
 
 - resident (h = fft_size/2 <= ``RESIDENT_MAX_H``: ratio 1 and the 8k
   bank): one launch, the whole frame in one block's shared memory, as the
   Pallas kernel held it in VMEM; no scratch, so device memory sees each
   frame read once and each block written once;
 - three launches (the 80k bank, whose h-point inverse does not fit a
-  block): the forward in one launch where m <= ``FUSED_MAX`` (one m/2
-  point FFT of the packed real frame, untangled as it is stored), else
-  two; then I1 (the filter formed from the folded G as the loader reads
-  X, P2-point FFTs and the twiddle) and I2 (Q2-point FFTs, the kept
-  columns stored interleaved), through X and C scratch in device memory.
+  block, where m = fft_size/ratio <= ``FUSED_MAX``: 16x and 8x): F, the
+  forward in one launch (one m/2-point FFT of the packed real frame,
+  untangled as it is stored); then I1 (the filter formed from the folded
+  G as the loader reads X, P2-point FFTs and the twiddle) and I2
+  (Q2-point FFTs, the kept columns stored interleaved), through X and C
+  scratch in device memory;
+- four launches (the 80k bank where m > ``FUSED_MAX``: 4x and 2x, m =
+  32768 and 65536): the forward as a four-step m = P x Q in two launches,
+  F1 (P-point FFTs of the frame's strided columns, times the twiddle) and
+  F2 (Q-point FFTs into X), through one more scratch B [n, m, 2] float32;
+  then I1 and I2 as above.
 
 What bounds it is bytes, not FLOPs: at 16x/80k a frame needs 4.7 MFLOP
 (``flops_per_frame``) against about 1.4 MB of scratch traffic. fp32 only;
 TF32 is never used (the signal path is gated at > 125 dB).
 
 Rules: a CPU tensor runs the plain version (``overlap_save.upsample_frames``);
-a CUDA tensor runs the kernel or raises. ``LAUNCHES`` counts kernel calls.
+a CUDA tensor runs the kernel or raises. ``LAUNCHES`` counts wrapper calls.
 """
 
 from __future__ import annotations
@@ -45,8 +51,9 @@ from totton_tpu_torch.ops.overlap_save import (
     upsample_frames,
 )
 
-#: Number of times the CUDA kernel was launched (one per wrapper call on a
-#: CUDA tensor). Reset it to 0 to count the launches of one run.
+#: Number of wrapper calls on a CUDA tensor: one a dispatch, whatever
+#: number of kernel launches (1, 3 or 4, by ``kernel_plan``) the call
+#: makes. Reset it to 0 to count the dispatches of one run.
 LAUNCHES = 0
 
 #: The resident plan's envelope (the .cu's ``kResidentMinH``,
@@ -84,8 +91,9 @@ def _in_stage_range(*sizes: int) -> bool:
 def kernel_plan(cfg: OverlapSaveConfig) -> dict:
     """Static sizes the kernel runs with for ``cfg`` (every ratio, even
     overlap). ``resident`` (h <= RESIDENT_MAX_H): one launch, m, h, j0,
-    the block. Else the three-launch plan: the forward (``fused``: one
-    m/2-point FFT per frame, else the (P, Q) four-step), the inverse split
+    the block. Else the three-launch plan (``fused``: the forward one
+    m/2-point FFT per frame) or the four-launch one (the forward the
+    (P, Q) four-step through scratch B), the inverse split
     h = P2 * Q2 (the plain folded path's balanced one: its I1 tile reads
     128-byte rows at h = 65536), j0 and the first kept stage-2 column
     k2_0. At ratio 1 (``halves``) Z sums the spectrum's two halves."""

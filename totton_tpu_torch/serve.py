@@ -533,10 +533,11 @@ class StreamServer:
         #: wake the dispatcher when any slot becomes ready
         self._kick = threading.Event()
         #: the serve plane's host spans (off until spans.start()): the
-        #: dispatcher's serve.{wait_input,gather,enqueue,upload,launch,
-        #: quantize,download,drain,drain_wait,housekeeping} keyed by step
-        #: number, the readers' serve.read and the writers' serve.write
-        #: and serve.send keyed by slot index and generation
+        #: dispatcher's serve.{wait_input,gather,gather_halo,enqueue,
+        #: upload,upload_halo,upload_input,launch,quantize,download,drain,
+        #: drain_wait,housekeeping} keyed by step number, the readers'
+        #: serve.read and the writers' serve.write and serve.send keyed by
+        #: slot index and generation
         self.spans = Spans()
 
     # -- connection handling ----------------------------------------------
@@ -968,8 +969,11 @@ class StreamServer:
         slot width >= ready slots): one active stream on a 64-slot server
         dispatches an 8-slot step, not a 64-slot one.
 
-        Returns (x [rows, k*block_in], tails [rows, halo], served) with
-        served = [(slot, row0, valid_frames)], or None when idle."""
+        Returns (x [rows, k*block_in], tails [rows, halo], served, halo)
+        with served = [(slot, row0, valid_frames, block arrival times)] and
+        halo the host intervals spent on the overlap-save history (the
+        tails array, each served slot's tail copy, join and cut; empty
+        with spans off), or None when idle."""
         ready = [(slot, slot.blocks_available())
                  for slot in self.slots if slot.ready()]
         ready = [(s, a) for s, a in ready if a > 0]
@@ -984,9 +988,17 @@ class StreamServer:
         k = min(pow2_floor(deepest), self.max_blocks_per_step)
         width = next(w for w in self._slot_widths if w >= len(ready))
         rows = width * self.channels
-        served = []
+        served, halo = [], []
+        # With spans on, the halo's host intervals for serve.gather_halo:
+        # (perf_counter_ns start, end, thread CPU ns), as Spans.add takes.
+        timed = self.spans.on
         x = np.zeros((rows, k * self.config.block_in), np.float32)
+        if timed:
+            t0, cpu0 = time.perf_counter_ns(), time.thread_time_ns()
         tails = np.zeros((rows, self.config.halo_in), np.float32)
+        if timed:
+            cpu = time.thread_time_ns() - cpu0
+            halo.append((t0, time.perf_counter_ns(), cpu))
         for slot, _a in ready:
             taken = slot.take_blocks(k)
             if taken is None:
@@ -994,16 +1006,21 @@ class StreamServer:
             frames, valid, ts = taken
             r0 = len(served) * self.channels
             x[r0:r0 + self.channels] = frames
+            if timed:
+                t0, cpu0 = time.perf_counter_ns(), time.thread_time_ns()
             tails[r0:r0 + self.channels] = slot.tail
             # Host-side tail update from the REAL consumed frames only
             # (the zero pad never enters the stream history).
             joined = np.concatenate([slot.tail, frames[:, :valid]], axis=1)
             slot.tail = joined[:, -self.config.halo_in:]
+            if timed:
+                cpu = time.thread_time_ns() - cpu0
+                halo.append((t0, time.perf_counter_ns(), cpu))
             slot.pending_steps += 1
             served.append((slot, r0, valid, ts))
         if not served:
             return None
-        return x, tails, served
+        return x, tails, served, halo
 
     def _to_device(self, arr: np.ndarray):
         """Host -> device transfer of a step input (pinned and
@@ -1200,6 +1217,10 @@ class StreamServer:
                 sp.close(tok)
                 tok = sp.open("serve.gather", step) if sp.on else -1
                 batch = self._gather()
+                if tok >= 0 and batch is not None:
+                    for t0, t1, cpu in batch[3]:
+                        sp.add("serve.gather_halo", t0, t1, cpu, key=step,
+                               parent=tok)
                 sp.close(tok)
                 if batch is None:
                     while inflight:
@@ -1224,12 +1245,19 @@ class StreamServer:
                     # between) still trips the breaker instead of
                     # cutting every future client forever.
                     continue
-                x, tails, served = batch
+                x, tails, served, _halo = batch
                 enq = sp.open("serve.enqueue", step) if sp.on else -1
                 try:
                     tok = (sp.open("serve.upload", step, parent=enq)
                            if enq >= 0 else -1)
-                    tj, xj = self._to_device(tails), self._to_device(x)
+                    part = (sp.open("serve.upload_halo", step, parent=tok)
+                            if tok >= 0 else -1)
+                    tj = self._to_device(tails)
+                    sp.close(part)
+                    part = (sp.open("serve.upload_input", step, parent=tok)
+                            if tok >= 0 else -1)
+                    xj = self._to_device(x)
+                    sp.close(part)
                     sp.close(tok)
                     tok = (sp.open("serve.launch", step, parent=enq)
                            if enq >= 0 else -1)
