@@ -63,6 +63,9 @@ SEAMS = {
         # served slot's tail copy, join and cut) for serve.gather_halo and
         # returns those intervals with the batch.
         "StreamServer._gather",
+        # The start marks (Spans.mark, serve.setup.*): the constructor
+        # marks the package's import up to this module's last line.
+        "_IMPORT_END",
     },
     # The warm-up imports the port's fade widths. The threaded session's
     # loop reads the end-of-input flag before the input ring's fill (the
@@ -99,13 +102,16 @@ SEAMS = {
     # trace_context wraps torch.profiler where the reference wraps
     # jax.profiler, and marks a CUDA window that kept launches but no
     # kernel record (check_kernel_records, NO_KERNEL_SUFFIX).
-    # Spans records the serve plane's host spans (StreamServer.spans).
+    # Spans records the serve plane's host spans (StreamServer.spans),
+    # and the server's start marks apart from the ring (clock, mark,
+    # end_marks; in snapshot and write_chrome).
     "utils/profiling.py": {"trace_context", "check_kernel_records",
                            "NO_KERNEL_SUFFIX", "Spans.<fields>",
                            "Spans.__init__", "Spans.start", "Spans.stop",
                            "Spans._intern", "Spans.open", "Spans.close",
                            "Spans.add", "Spans.dropped", "Spans.snapshot",
-                           "Spans.write_chrome"},
+                           "Spans.write_chrome", "Spans.clock", "Spans.mark",
+                           "Spans.end_marks"},
     "control/wiring.py": set(),
     "control/daemon.py": set(),
     "control/server.py": set(),

@@ -17,7 +17,14 @@ float64 oracle, so TF32 is switched off for every matmul on import.
 
 from __future__ import annotations
 
-import torch
+import time
+
+#: the package's first line, as ``utils.profiling.Spans.clock()`` reads it:
+#: the start of the import that ``StreamServer`` marks as
+#: ``serve.setup.import``
+_IMPORT_START = (time.perf_counter_ns(), time.thread_time_ns())
+
+import torch  # noqa: E402
 
 __version__ = "0.1.0"
 

@@ -27,6 +27,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import torch
@@ -40,6 +41,10 @@ NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+#: each library's load in this process (``load``: the sources' hash, a
+#: build where none is cached, ``ctypes.CDLL``): name -> (start, end),
+#: each a (``perf_counter_ns``, ``thread_time_ns``) reading
+loads: dict[str, tuple[tuple[int, int], tuple[int, int]]] = {}
 
 
 def _nvcc() -> str:
@@ -99,8 +104,11 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
+            since = (time.perf_counter_ns(), time.thread_time_ns())
             lib = ctypes.CDLL(str(build(name)))
             _libs[name] = lib
+            loads[name] = (since,
+                           (time.perf_counter_ns(), time.thread_time_ns()))
         return lib
 
 

@@ -83,8 +83,9 @@ from totton_tpu_torch.io.sockets import (
     pack_header,
     unpack_header,
 )
-from totton_tpu_torch import resolve_device
+from totton_tpu_torch import _IMPORT_START, resolve_device
 from totton_tpu_torch.engine.upsampler import download, fetch, upload
+from totton_tpu_torch.ops import _build
 from totton_tpu_torch.ops import device_pcm as _dp
 from totton_tpu_torch.ops.fused_frames import kernel_plan
 from totton_tpu_torch.ops.overlap_save import (
@@ -431,6 +432,16 @@ class StreamServer:
         device: str | torch.device = "cuda",
         mesh=None,
     ) -> None:
+        t_init = Spans.clock()
+        #: the serve plane's host spans (off until spans.start()): the
+        #: dispatcher's serve.{wait_input,gather,gather_halo,enqueue,
+        #: upload,upload_halo,upload_input,launch,quantize,download,drain,
+        #: drain_wait,housekeeping} keyed by step number, the readers'
+        #: serve.read and the writers' serve.write and serve.send keyed by
+        #: slot index and generation; and the start marks, serve.setup.*,
+        #: from the package's import to start()'s return
+        self.spans = sp = Spans()
+        sp.mark("serve.setup.import", _IMPORT_START, _IMPORT_END)
         # Serving on a mesh (parallel.make_mesh): the step's slot rows
         # split evenly over the mesh's devices, each device steps its own
         # rows and the rows are gathered back in order. Tails are
@@ -447,9 +458,11 @@ class StreamServer:
             self.device = mesh.devices()[0]
             if mesh.size > 1:
                 self._devices = mesh.devices()
+        t = sp.mark("serve.setup.device", t_init)
         self.config = OverlapSaveConfig.from_sidecar(filt.sidecar)
         if self.device.type == "cuda" and self.config.overlap % 2 == 0:
             kernel_plan(self.config)  # raises on what the kernel cannot run
+        sp.mark("serve.setup.kernel_plan", t)
         self._filter = filt
         # Device-PCM serving: quantize the batched step output to int16
         # ON the device, halving every stream's share of the
@@ -466,9 +479,11 @@ class StreamServer:
             raise ValueError(
                 f"serve endpoint must be a listen spec, got {endpoint!r}")
         self._bundle = self._fold(filt, eq_response)
+        t = sp.clock()
         self._step = make_block_step(self.config)
         if self._devices is not None:
             self._step = _row_split_step(self._step, self._devices)
+        t = sp.mark("serve.setup.block_step", t)
         # Adaptive row width: each step dispatches the smallest
         # power-of-two slot width covering the READY slots (served slots
         # are compacted into leading rows), so a lightly-loaded server
@@ -501,6 +516,7 @@ class StreamServer:
                        max_input_blocks=max_input_backlog_blocks)
             for i in range(max_streams)
         ]
+        sp.mark("serve.setup.slots", t)
         self._free = list(range(max_streams))
         self._slot_lock = threading.Lock()
         self.stats = ServeStats()
@@ -532,13 +548,7 @@ class StreamServer:
         self._threads: list[threading.Thread] = []
         #: wake the dispatcher when any slot becomes ready
         self._kick = threading.Event()
-        #: the serve plane's host spans (off until spans.start()): the
-        #: dispatcher's serve.{wait_input,gather,gather_halo,enqueue,
-        #: upload,upload_halo,upload_input,launch,quantize,download,drain,
-        #: drain_wait,housekeeping} keyed by step number, the readers'
-        #: serve.read and the writers' serve.write and serve.send keyed by
-        #: slot index and generation
-        self.spans = Spans()
+        sp.mark("serve.setup.init", t_init)
 
     # -- connection handling ----------------------------------------------
 
@@ -867,13 +877,22 @@ class StreamServer:
         device; on a mesh, {device: FoldedBundle} for each distinct device
         of the mesh. Runs on the calling thread, once per swap; device
         work there and on the dispatcher shares the default CUDA stream,
-        so the bundle is complete before any step reads it."""
+        so the bundle is complete before any step reads it. The server's
+        first fold is marked: the spectrum's upload (the first touch of
+        the device, which creates its context) apart from the fold."""
+        sp = self.spans
+        t = sp.clock()
         if self._devices is None:
             spectrum = filter_spectrum(filt.taps, self.config.fft_size,
                                        eq_response, device=self.device)
-            return fold_bundle(spectrum, self.config)
-        return fold_bundles(filt.taps, self.config, eq_response,
-                            self._devices)
+            t = sp.mark("serve.setup.fold.upload", t)
+            bundle = fold_bundle(spectrum, self.config)
+            sp.mark("serve.setup.fold.bundle", t)
+            return bundle
+        bundle = fold_bundles(filt.taps, self.config, eq_response,
+                              self._devices)
+        sp.mark("serve.setup.fold", t)
+        return bundle
 
     def set_eq(self, eq_response: np.ndarray | None) -> None:
         """Hot-swap the EQ baked into the served spectrum (all streams).
@@ -1379,28 +1398,47 @@ class StreamServer:
         # and 18-29 ms after (two runs, NVIDIA H100 80GB HBM3, 700 W;
         # PERF.md), a stall the first client at that shape would otherwise
         # take.
+        # Each phase is marked (Spans.mark), the phases end to end: the
+        # listen; each shape's step (key its width, gen its depth) in three
+        # legs, its inputs' host zeros and upload, its enqueue, and its
+        # download and fetch; a kernel library's first load (inside the
+        # enqueue of the step that loaded it) apart; the threads' start.
+        sp = self.spans
+        t_start = sp.clock()
         self._srv = _listen(self.spec, backlog=max(self.max_streams, 16))
+        t = sp.mark("serve.setup.listen", t_start)
         for width in self._slot_widths:
             rows = width * self.channels
             zt = self._to_device(
                 np.zeros((rows, self.config.halo_in), np.float32))
             k = 1
             while k <= self.max_blocks_per_step:
+                t_step = t
                 z = self._to_device(
                     np.zeros((rows, k * self.config.block_in), np.float32))
+                t = sp.mark("serve.setup.warm.upload", t, key=width, gen=k)
                 y0 = self._step(zt, z, self._bundle)[0]
                 if self.device_pcm:
                     y0 = _dp.quantize_s16(y0)
+                t = sp.mark("serve.setup.warm.enqueue", t, key=width, gen=k)
                 fetch(download(y0))
+                t = sp.mark("serve.setup.warm.fetch", t, key=width, gen=k)
+                sp.mark("serve.setup.warm", t_step, t, key=width, gen=k)
                 k *= 2
+        for lib, (since, until) in list(_build.loads.items()):
+            if since[0] >= t_start[0]:
+                sp.mark("serve.setup.load." + lib, since, until)
         for target, name in ((self._acceptor, "totton-serve-accept"),
                              (self._dispatcher, "totton-serve-dispatch")):
-            t = threading.Thread(target=target, daemon=True, name=name)
-            t.start()
-            self._threads.append(t)
+            th = threading.Thread(target=target, daemon=True, name=name)
+            th.start()
+            self._threads.append(th)
         log.info("serve: listening on %s (%d slots, %d Hz -> %d Hz)",
                  self.spec.raw, self.max_streams, self.sample_rate,
                  self.sample_rate * self.config.ratio)
+        t = sp.mark("serve.setup.threads", t)
+        sp.mark("serve.setup.start", t_start, t)
+        sp.end_marks()
 
     def drain(self, timeout_s: float | None = None) -> bool:
         """Graceful shutdown, phase 1: stop ACCEPTING but let active
@@ -1459,3 +1497,8 @@ class StreamServer:
 
     def wait(self, timeout: float | None = None) -> None:
         self._stop.wait(timeout)
+
+
+#: this module's last line, as ``Spans.clock()`` reads it: the end of the
+#: package's import that ``StreamServer`` marks as ``serve.setup.import``
+_IMPORT_END = Spans.clock()

@@ -162,6 +162,12 @@ class Spans:
 
     Where more records open than the ring holds, the oldest are
     overwritten and counted in ``dropped``, never lost silently.
+
+    Marks (``mark``) are one-off named intervals kept apart from the ring:
+    the server's start phases (``serve.setup.*``). They are recorded
+    whether or not ``on`` is set, until ``end_marks()``; ``start()``
+    keeps them, and ``snapshot()`` and ``write_chrome`` give them beside
+    the records.
     """
 
     def __init__(self, capacity: int = 1 << 18) -> None:
@@ -191,6 +197,9 @@ class Spans:
         self._w = {k: memoryview(getattr(self, "_" + k))
                    for k in ("num", "name", "t0", "t1", "cpu", "parent",
                              "key", "gen", "tid")}
+        #: whether ``mark`` records (until ``end_marks()``)
+        self.marking = True
+        self._marks: list[tuple] = []
 
     def start(self) -> None:
         """Record from now on; records from before are forgotten."""
@@ -262,6 +271,31 @@ class Spans:
         w["cpu"][s] = cpu
         return n
 
+    @staticmethod
+    def clock() -> tuple[int, int]:
+        """Now, as ``mark`` takes it: (``perf_counter_ns``, this
+        thread's ``thread_time_ns``)."""
+        return time.perf_counter_ns(), time.thread_time_ns()
+
+    def mark(self, name: str, since: tuple[int, int],
+             until: tuple[int, int] | None = None, key: int = -1,
+             gen: int = -1) -> tuple[int, int]:
+        """Record the mark ``name`` from ``since`` to ``until`` (``clock()``
+        readings; now where None) with the thread CPU time between them.
+        Returns ``until``, so that a chain of marks meets end to end.
+        Records nothing after ``end_marks()``."""
+        if until is None:
+            until = self.clock()
+        if self.marking:
+            self._marks.append((name, since[0], until[0],
+                                until[1] - since[1], key, gen,
+                                threading.get_ident()))
+        return until
+
+    def end_marks(self) -> None:
+        """Record no more marks (the server's start has returned)."""
+        self.marking = False
+
     @property
     def dropped(self) -> int:
         """Records opened since ``start()`` that the ring overwrote."""
@@ -274,7 +308,10 @@ class Spans:
         """The closed records since ``start()``, in the order they
         opened: ``names`` and one array each of ``num``, ``name``, ``t0``,
         ``t1`` (ns), ``cpu`` (ns), ``parent``, ``key``, ``gen`` and
-        ``tid``; ``dropped`` and ``open`` (records not closed yet)."""
+        ``tid``; ``dropped`` and ``open`` (records not closed yet); and
+        ``marks``, a list of dicts (``name``, ``t0``, ``t1``, ``cpu``,
+        ``key``, ``gen``, ``tid``) ordered by start, an enclosing mark
+        before what it holds."""
         mine = np.flatnonzero(self._num >= self._first)
         mine = mine[np.argsort(self._num[mine], kind="stable")]
         closed = mine[self._t1[mine] > 0]
@@ -282,15 +319,19 @@ class Spans:
                for k in ("num", "name", "t0", "t1", "cpu", "parent", "key",
                          "gen", "tid")}
         out.update(names=list(self.names), dropped=self.dropped,
-                   open=int(mine.size - closed.size))
+                   open=int(mine.size - closed.size),
+                   marks=[dict(zip(("name", "t0", "t1", "cpu", "key", "gen",
+                                    "tid"), m))
+                          for m in sorted(self._marks,
+                                          key=lambda m: (m[1], -m[2]))])
         return out
 
     def write_chrome(self, path: str) -> str:
         """Write the snapshot as a Chrome trace (``"X"`` events, in
         microseconds of ``perf_counter``) that Perfetto and
         chrome://tracing open; each event's args carry its key,
-        generation, record number, parent and thread CPU time. Returns
-        ``path``."""
+        generation, record number, parent and thread CPU time. The marks
+        follow the records, in category ``mark``. Returns ``path``."""
         snap = self.snapshot()
         pid = os.getpid()
         events = [
@@ -303,10 +344,18 @@ class Spans:
                       "parent": int(snap["parent"][i]),
                       "cpu_us": int(snap["cpu"][i]) / 1e3}}
             for i in range(snap["num"].size)]
+        events += [
+            {"ph": "X", "cat": "mark", "name": m["name"],
+             "ts": m["t0"] / 1e3, "dur": (m["t1"] - m["t0"]) / 1e3,
+             "pid": pid, "tid": m["tid"],
+             "args": {"key": m["key"], "gen": m["gen"],
+                      "cpu_us": m["cpu"] / 1e3}}
+            for m in snap["marks"]]
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         with open(path, "w") as f:
             json.dump({"traceEvents": events, "displayTimeUnit": "ms",
                        "tottonSpans": {"clock": "perf_counter_ns",
                                        "dropped": snap["dropped"],
-                                       "open": snap["open"]}}, f)
+                                       "open": snap["open"],
+                                       "marks": len(snap["marks"])}}, f)
         return path
