@@ -544,7 +544,7 @@ def reading_entry(r: dict) -> dict:
 
 def engine_state(name, dev):
     """(filter, cfg, folded bundle, torch.fft spectrum) of the bundled
-    filter ``name`` on ``dev``; raises if the card folded GW."""
+    filter ``name`` on ``dev``."""
     import numpy as np
     import torch
 
@@ -555,9 +555,6 @@ def engine_state(name, dev):
     cfg = osv.OverlapSaveConfig.from_sidecar(lf.sidecar)
     spec = osv.filter_spectrum(lf.taps, cfg.fft_size, device=dev)
     bundle = osv.fold_bundle(spec, cfg)
-    if bundle.absorbed:
-        raise AssertionError(f"{name}: the card folded GW; the kernel "
-                             "takes the folded G")
     hspec = torch.fft.rfft(torch.from_numpy(lf.taps.astype(np.float64))
                            .to(dev), n=cfg.fft_size).to(torch.complex64)
     return lf, cfg, bundle, hspec
@@ -869,9 +866,6 @@ def serve_phase(card, lf, lin, device, seconds=(2.0, 3.5, 5.0, 7.3),
     outs, wall = run_clients(port, sigs, split={2: held, 3: held}, swap=swap)
     server.stop()
     launches = ff.LAUNCHES
-    if device == "cuda" and server._bundle.absorbed:
-        raise AssertionError("the live swap folded GW on the card; the "
-                             "kernel takes G")
     figures = serve_figures(server, wall)
     if server.failed or (device == "cuda" and launches < 1):
         raise AssertionError(f"serve failed={server.failed}, fused_frames "
@@ -2887,8 +2881,6 @@ def sharded_phase(card, work, lf, device="cuda", cli_seconds=10.0,
     replies, wall = run_clients(port, sigs)
     server.stop()
     n_e = ff.LAUNCHES - before
-    if device == "cuda" and any(b.absorbed for b in server._bundle.values()):
-        raise AssertionError("the mesh server folded GW on the card")
     rels = [rel_err(y, upsample_signal(x, lf, device=device))
             for x, y in zip(sigs, replies)]
     if server.failed or not max(rels) < REL_TOL or (
@@ -3900,9 +3892,6 @@ LIVE_BLOCKS = (1, 2, 4, 8, SPLIT_BLOCKS)
 #: ``ops.fft.CUDA_BATCH`` values ``--plain`` sweeps where the checkout
 #: has the constant.
 PLAIN_BATCHES = (8, 16, 32, 64, 128, 256)
-#: The 80k bank's ratios with an absorbed plan: the CPU programs that
-#: ``--plain`` times and splits.
-PLAIN_CPU_KEYS = ("4x_80k", "8x_80k", "16x_80k")
 
 
 def bmm_probe(dev, raw: bool = True) -> dict:
@@ -3934,23 +3923,20 @@ def bmm_probe(dev, raw: bool = True) -> dict:
     return out
 
 
-def plain_main(root: str, reps: int = 5) -> int:
+def plain_main(root: str) -> int:
     """``python3 chip_smoke.py --plain ROOT``: the plain frame programs of
-    the checkout at ROOT, for parent-vs-change calls in turns on one host.
+    the checkout at ROOT on the card, for parent-vs-change calls in turns
+    on one card.
 
-    On the CPU, at the torch default thread count, for each
-    PLAIN_CPU_KEYS geometry: one split_frames stereo dispatch through the
-    CPU's bundle (absorbed) and through the folded G, host ms (median of
-    ``reps``, the two in turns), and each program's split_diff. With a
-    card, the plain programs on it: the 16x/80k dispatch through the
-    folded program; then, for each PLAIN_BATCHES value of
-    ``ops.fft.CUDA_BATCH`` (once where the checkout has none), the
+    The 16x/80k split_frames dispatch through the folded program; then,
+    for each PLAIN_BATCHES value of ``ops.fft.CUDA_BATCH`` (once where
+    the checkout has none), the
     classic program at CLASSIC_GEOMETRY and the crossfeed step on a
     seeded 3102-tap set (the M size) at every LIVE_BLOCKS count, each by
     cuda_time_ms (the host's launch pace included) and graph_ms (the
     card's own time), the classic program's split_diff and ``bmm_probe``
     through ``frame_matmul``; the raw ``torch.bmm`` probe once. Prints
-    one JSON line; exits 1 if a split was not 0."""
+    one JSON line; exits 1 if a split was not 0 or there is no card."""
     sys.path.insert(0, os.path.abspath(root))
     import numpy as np
     import torch
@@ -3961,89 +3947,62 @@ def plain_main(root: str, reps: int = 5) -> int:
     from totton_tpu_torch.ops import fft as tfft
     from totton_tpu_torch.ops import overlap_save as osv
 
-    def host_ms(runs, frames):
-        """{name: median host ms} of each run(frames) after one warm-up,
-        the runs taking turns in each of ``reps`` rounds."""
-        ms = {name: [] for name in runs}
-        for run in runs.values():
-            run(frames)
-        for _ in range(reps):
-            for name, run in runs.items():
-                t0 = time.perf_counter()
-                run(frames)
-                ms[name].append((time.perf_counter() - t0) * 1e3)
-        return {name: sorted(v)[len(v) // 2] for name, v in ms.items()}
-
     def upsampler(bundle, cfg):
         return lambda f: osv.upsample_frames(f, bundle, cfg)
 
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 1
     splits = {}
-    cpu = {"cpu_capability": torch.backends.cpu.get_cpu_capability(),
-           "threads": torch.get_num_threads()}
-    for key in PLAIN_CPU_KEYS:
-        lf = load_filter(os.path.join(FILTER_DIR, SERVED[key] + ".json"))
-        cfg = osv.OverlapSaveConfig.from_sidecar(lf.sidecar)
-        spec = osv.filter_spectrum(lf.taps, cfg.fft_size)
-        absorbed = osv.fold_bundle(spec, cfg)
-        if not absorbed.absorbed:
-            raise AssertionError(f"{key}: the CPU folded no absorbed bundle")
-        frames = split_frames(cfg.frame_in, "cpu")
-        runs = {"absorbed": upsampler(absorbed, cfg),
-                "folded": upsampler(osv._folded_g(spec, cfg), cfg)}
-        for program, ms in host_ms(runs, frames).items():
-            cpu[f"{key} {program} ms"] = ms
-        for program, run in runs.items():
-            splits[f"cpu {key} {program}"] = split_diff(run, frames)
-        del absorbed, runs, frames
     out = {"package": os.path.dirname(os.path.abspath(
                totton_tpu_torch.__file__)),
-           "blocks": SPLIT_BLOCKS, "channels": 2, "cpu": cpu}
-    if torch.cuda.is_available():
-        dev = torch.device("cuda")
-        card = {"card": card_line()}
-        lf = load_filter(os.path.join(FILTER_DIR, MAIN_FILTER + ".json"))
-        cfg = osv.OverlapSaveConfig.from_sidecar(lf.sidecar)
-        bundle = osv.fold_bundle(osv.filter_spectrum(
-            lf.taps, cfg.fft_size, device=dev), cfg)
-        fd = split_frames(cfg.frame_in, dev)
-        run = upsampler(bundle, cfg)
-        card["16x_80k_folded_ms"] = cuda_time_ms(lambda: run(fd))
-        del bundle, run, fd
-        rng = np.random.default_rng(7)
-        taps, fft, ratio = CLASSIC_GEOMETRY
-        ccfg = osv.OverlapSaveConfig(taps, fft, fft - taps + 1, ratio)
-        h = rng.normal(size=taps) * np.exp(-np.arange(taps) / (taps / 8))
-        classic = upsampler(osv.fold_bundle(
-            osv.filter_spectrum(h, fft, device=dev), ccfg), ccfg)
-        cframes = split_frames(ccfg.frame_in, dev)
-        xcfg = tcf._cf_geometry(3102)
-        spec = np.fft.rfft(rng.normal(size=(4, xcfg.taps)) * np.exp(
-            -np.arange(xcfg.taps) / 400.0), xcfg.fft_size)
-        hs = tuple(torch.from_numpy(v.astype(np.float32)).to(dev)
-                   for v in (spec.real, spec.imag))
-        step = tcf._make_cf_step(xcfg)
-        xs = torch.from_numpy((rng.normal(
-            size=(2, SPLIT_BLOCKS * xcfg.block_in)) * 0.3).astype(
-                np.float32)).to(dev)
-        tail = torch.zeros((2, xcfg.halo_in), device=dev)
-        batches = PLAIN_BATCHES if hasattr(tfft, "CUDA_BATCH") else (None,)
-        for b in batches:
-            if b is not None:
-                tfft.CUDA_BATCH = b
-            row = {}
-            for n in LIVE_BLOCKS:
-                cf = cframes[:, :n].contiguous()
-                x = xs[:, :n * xcfg.block_in].contiguous()
-                for name, fn in (("classic", lambda: classic(cf)),
-                                 ("crossfeed", lambda: step(tail, x, hs))):
-                    row[f"{name} {n} ms"] = cuda_time_ms(fn)
-                    row[f"{name} {n} device ms"] = graph_ms(fn)
-            splits[f"cuda classic CUDA_BATCH {b}"] = split_diff(classic,
-                                                                cframes)
-            row["probe"] = bmm_probe(dev, raw=False)
-            card[f"CUDA_BATCH {b}"] = row
-        card["bmm_probe"] = bmm_probe(dev, raw=True)
-        out["cuda"] = card
+           "blocks": SPLIT_BLOCKS, "channels": 2}
+    dev = torch.device("cuda")
+    card = {"card": card_line()}
+    lf = load_filter(os.path.join(FILTER_DIR, MAIN_FILTER + ".json"))
+    cfg = osv.OverlapSaveConfig.from_sidecar(lf.sidecar)
+    bundle = osv.fold_bundle(osv.filter_spectrum(
+        lf.taps, cfg.fft_size, device=dev), cfg)
+    fd = split_frames(cfg.frame_in, dev)
+    run = upsampler(bundle, cfg)
+    card["16x_80k_folded_ms"] = cuda_time_ms(lambda: run(fd))
+    del bundle, run, fd
+    rng = np.random.default_rng(7)
+    taps, fft, ratio = CLASSIC_GEOMETRY
+    ccfg = osv.OverlapSaveConfig(taps, fft, fft - taps + 1, ratio)
+    h = rng.normal(size=taps) * np.exp(-np.arange(taps) / (taps / 8))
+    classic = upsampler(osv.fold_bundle(
+        osv.filter_spectrum(h, fft, device=dev), ccfg), ccfg)
+    cframes = split_frames(ccfg.frame_in, dev)
+    xcfg = tcf._cf_geometry(3102)
+    spec = np.fft.rfft(rng.normal(size=(4, xcfg.taps)) * np.exp(
+        -np.arange(xcfg.taps) / 400.0), xcfg.fft_size)
+    hs = tuple(torch.from_numpy(v.astype(np.float32)).to(dev)
+               for v in (spec.real, spec.imag))
+    step = tcf._make_cf_step(xcfg)
+    xs = torch.from_numpy((rng.normal(
+        size=(2, SPLIT_BLOCKS * xcfg.block_in)) * 0.3).astype(
+            np.float32)).to(dev)
+    tail = torch.zeros((2, xcfg.halo_in), device=dev)
+    batches = PLAIN_BATCHES if hasattr(tfft, "CUDA_BATCH") else (None,)
+    for b in batches:
+        if b is not None:
+            tfft.CUDA_BATCH = b
+        row = {}
+        for n in LIVE_BLOCKS:
+            cf = cframes[:, :n].contiguous()
+            x = xs[:, :n * xcfg.block_in].contiguous()
+            for name, fn in (("classic", lambda: classic(cf)),
+                             ("crossfeed", lambda: step(tail, x, hs))):
+                row[f"{name} {n} ms"] = cuda_time_ms(fn)
+                row[f"{name} {n} device ms"] = graph_ms(fn)
+        splits[f"cuda classic CUDA_BATCH {b}"] = split_diff(classic,
+                                                            cframes)
+        row["probe"] = bmm_probe(dev, raw=False)
+        card[f"CUDA_BATCH {b}"] = row
+    card["bmm_probe"] = bmm_probe(dev, raw=True)
+    out["cuda"] = card
     out["splits"] = splits
     no_jax()
     print(json.dumps(out))

@@ -48,23 +48,14 @@ def _spectrum(cfg, seed=1):
     return tos.filter_spectrum(h, cfg.fft_size)
 
 
-def _frames_program(cfg, bundle, absorbed=None, classic=False):
-    assert bundle.absorbed == bool(absorbed) and bundle.classic == classic
-    if absorbed is not None:
-        p_f = (tfft._split_factors(cfg.frame_in) or (0,))[0]
-        split = p_f > 0 and tos.absorbed_plan(cfg)[1] % p_f == 0
-        assert split == (absorbed == "split")
+def _frames_program(cfg, bundle, classic=False):
+    assert bundle.classic == classic
     return cfg.frame_in, lambda f: tos.upsample_frames(f, bundle, cfg)
 
 
-def _folded(ratio):
-    cfg = _cfg(257, 4096, ratio)
-    return _frames_program(cfg, tos._folded_g(_spectrum(cfg), cfg))
-
-
-def _absorbed(taps, fft, ratio, branch):
+def _folded(ratio, taps=257, fft=4096):
     cfg = _cfg(taps, fft, ratio)
-    return _frames_program(cfg, tos.fold_bundle(_spectrum(cfg), cfg), branch)
+    return _frames_program(cfg, tos.fold_bundle(_spectrum(cfg), cfg))
 
 
 def _classic():
@@ -84,10 +75,6 @@ def _rfft2_irfft2(n):
     return n, run
 
 
-def _split_stacked(n):
-    return n, lambda f: tfft.fft2_real_split_stacked(f, n)[0]
-
-
 #: name -> () -> (frame length m, program on [C, N, m] frames).
 PROGRAMS = {
     "folded_2x": lambda: _folded(2),
@@ -97,13 +84,13 @@ PROGRAMS = {
     "ratio1": lambda: _frames_program(
         _cfg(257, 2048, 1), tos.fold_bundle(_spectrum(_cfg(257, 2048, 1)),
                                             _cfg(257, 2048, 1))),
-    "absorbed_split": lambda: _absorbed(1025, 8192, 4, "split"),
-    "absorbed_direct": lambda: _absorbed(1025, 8192, 16, "direct"),
+    "folded_4x_8192": lambda: _folded(4, 1025, 8192),
+    "folded_16x_8192": lambda: _folded(16, 1025, 8192),
     "classic": _classic,
     "fft2_real_512": lambda: _fft2_real(512),
     "fft2_real_2048": lambda: _fft2_real(2048),
     "rfft2_irfft2": lambda: _rfft2_irfft2(1024),
-    "split_stacked": lambda: _split_stacked(1024),
+    "fft2_real_1024": lambda: _fft2_real(1024),
 }
 
 
@@ -156,8 +143,8 @@ def _check_crossfeed(rng, run):
     np.testing.assert_array_equal(tail.numpy(), whole_tail.numpy())
 
 
-@pytest.mark.parametrize("name", ["folded_16x", "absorbed_split",
-                                  "absorbed_direct", "classic",
+@pytest.mark.parametrize("name", ["folded_16x", "folded_4x_8192",
+                                  "folded_16x_8192", "classic",
                                   "rfft2_irfft2"])
 def test_deep_dispatch_bits_do_not_depend_on_the_dispatch(name):
     """The same rule at a deep dispatch and every thread the host has:
@@ -181,3 +168,32 @@ def test_deep_dispatch_bits_do_not_depend_on_the_dispatch(name):
         torch.set_num_threads(threads)
     assert np.isfinite(whole).all() and whole.shape[:2] == frames.shape[:2]
     np.testing.assert_array_equal(parts, whole)
+
+
+#: Frames among which ``test_one_row_product_bits_do_not_depend_on_the_batch``
+#: holds a one-row product, and the batch sizes it cuts from them.
+ONE_ROW_FRAMES = 64
+ONE_ROW_BATCHES = (1, 3, 7, 9, 21, 63)
+ONE_ROW_CASES = [(t, b) for t in (2, 4) for b in ONE_ROW_BATCHES]
+
+
+@pytest.mark.parametrize("threads,batch", ONE_ROW_CASES,
+                         ids=[f"threads_{t}-batch_{b}"
+                              for t, b in ONE_ROW_CASES])
+def test_one_row_product_bits_do_not_depend_on_the_batch(threads, batch):
+    """``frame_matmul`` on frames of one row each (a single-stage
+    transform's product, [F, 512] against [512, 512]): the first ``batch``
+    frames alone give the same bits as among ONE_ROW_FRAMES. A plain
+    batched product of M = 1 rows broke this on an AVX512 host at 2 and
+    4 threads."""
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(ONE_ROW_FRAMES, 512, generator=gen)
+    w = torch.randn(512, 512, generator=gen)
+    before = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        whole = tfft.frame_matmul(x, w)
+        part = tfft.frame_matmul(x[:batch], w)
+    finally:
+        torch.set_num_threads(before)
+    np.testing.assert_array_equal(part.numpy(), whole[:batch].numpy())

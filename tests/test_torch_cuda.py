@@ -86,15 +86,15 @@ def _cfg(taps, fft, ratio):
 
 
 def test_fold_bundle_on_cuda_builds_g_not_gw():
-    """On a CUDA device the swap folds G (h bins; G1 and G2 at ratio 1),
-    never the 32 MB GW, at every ratio."""
+    """On a CUDA device the swap folds G (h bins; G1 and G2 at ratio 1) at
+    every ratio."""
     dev = _card()
     for taps, fft, ratio in [(80001, 131072, 16), (8001, 16384, 4),
                              (1025, 4096, 1)]:
         cfg = _cfg(taps, fft, ratio)
         b = tos.fold_bundle(tos.filter_spectrum(np.ones(taps), fft,
                                                 device=dev), cfg)
-        assert not b.absorbed and b.weights.device.type == "cuda"
+        assert b.weights.device.type == "cuda"
         assert tuple(b.weights.shape) == (
             (2, fft // 2, 2) if ratio == 1 else (fft // 2, 2))
 

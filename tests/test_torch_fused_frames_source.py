@@ -69,7 +69,7 @@ def _bundle(taps, fft, ratio, eq, tmp_path):
         path = tmp_path / "eq.txt"
         path.write_text(EQ_PROFILE)
         response = resolve_eq_response(str(path), None, fft, 44100)[0]
-    return cfg, tos._folded_g(tos.filter_spectrum(h, fft, response), cfg)
+    return cfg, tos.fold_bundle(tos.filter_spectrum(h, fft, response), cfg)
 
 
 @pytest.mark.parametrize("n_frames", [1, 2, 3])

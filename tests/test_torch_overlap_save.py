@@ -68,7 +68,6 @@ def test_bundled_geometry_properties():
     jcfg, tcfg = _cfgs(80001, 131072, 16)
     for name in ("overlap", "frame_in", "block_in", "halo_in", "n_bins"):
         assert getattr(tcfg, name) == getattr(jcfg, name)
-    assert tos.absorbed_plan(tcfg) == (512, 128, 64, 8)
 
 
 @pytest.mark.parametrize("n_blocks,block_in,halo_in", [(5, 8, 20), (4, 3, 10)])
@@ -116,12 +115,25 @@ def test_upsample_blocks_matches_jax_and_oracle(rng, taps, fft, ratio):
 @pytest.mark.parametrize("taps,fft,ratio", [
     (1025, 8192, 4), (2001, 16384, 8), (4097, 16384, 16),
 ])
-def test_absorbed_matches_jax_and_oracle(rng, taps, fft, ratio):
-    _, tcfg = _cfgs(taps, fft, ratio)
-    assert tos.absorbed_plan(tcfg) is not None
+def test_folded_large_frames_match_jax_and_oracle(rng, taps, fft, ratio):
+    """The folded program at ratios 4-16 on frames of 8192-16384 points
+    against the JAX package and the float64 oracle."""
     y, ref_jax, oracle, _ = _both(rng, taps, fft, ratio, decay=True)
     assert rel_err(y, ref_jax) < 1e-4
     assert rel_err(y, oracle) < 1e-4
+
+
+@pytest.mark.parametrize("taps,fft,ratio", [
+    (80001, 131072, 16), (8001, 16384, 4), (1025, 4096, 1),
+])
+def test_fold_bundle_builds_g(taps, fft, ratio):
+    """The bundle is the folded G on the CPU as on the card: h bins, or G1
+    and G2 stacked at ratio 1."""
+    _, cfg = _cfgs(taps, fft, ratio)
+    b = tos.fold_bundle(tos.filter_spectrum(np.ones(taps), fft), cfg)
+    assert not b.classic and b.weights.dtype == torch.float32
+    assert tuple(b.weights.shape) == (
+        (2, fft // 2, 2) if ratio == 1 else (fft // 2, 2))
 
 
 def test_block_step_streaming_matches_single_shot(rng):
@@ -152,7 +164,7 @@ def test_odd_overlap_not_ported():
     _, cfg = _cfgs(130, 1024, 1)
     spec = tos.filter_spectrum(np.arange(130.0), 1024)
     bundle = tos.fold_bundle(spec, cfg)
-    assert bundle.classic and not bundle.absorbed
+    assert bundle.classic
     np.testing.assert_array_equal(bundle.weights[:, 0].numpy(),
                                   spec[0].numpy())
     np.testing.assert_array_equal(bundle.weights[:, 1].numpy(),
@@ -218,6 +230,6 @@ def test_from_jax_carries_tail_and_checks_shapes(rng):
     tail = rng.normal(size=(2, tcfg.halo_in)).astype(np.float32)
     bundle, t = from_jax(spec, tcfg, tail)
     np.testing.assert_array_equal(t.numpy(), tail)
-    assert bundle.absorbed
+    assert not bundle.classic and tuple(bundle.weights.shape) == (1024, 2)
     with pytest.raises(ValueError, match="tail"):
         from_jax(spec, tcfg, tail[:, 1:])

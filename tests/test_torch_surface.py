@@ -122,10 +122,10 @@ TPU_ONLY = {
     # program; the port's kernel packs the real frame itself
     # (csrc/fused_frames.cu).
     "ops/fft.py:fft2_real_split",
-    # The stacked four-step's split size: the MXU program picks P for
-    # the matrix unit's tiles; the port's plain DFT fixes its split.
-    "ops/fft.py:fft2_real_split_stacked(p)",
-    # The plain frame function takes the folded bundle (G, GW or the
+    # The stacked four-step forward fed the MXU's tile-absorbed program;
+    # the port's plain programs take fft2_real.
+    "ops/fft.py:fft2_real_split_stacked",
+    # The plain frame function takes the folded bundle (G or the
     # classic spectrum, folded once per filter on its device) where the
     # XLA program takes the spectrum pair and folds it inside the jitted
     # step; the XLA formulation knob goes with it.

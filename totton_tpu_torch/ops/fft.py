@@ -48,13 +48,6 @@ def _factorize(n: int) -> tuple[int, ...]:
     return tuple(factors)
 
 
-def _split_factors(n: int) -> tuple[int, int] | None:
-    """Two-stage (P, Q) factorization, or None when n doesn't factorize
-    into exactly two stages."""
-    factors = _factorize(n)
-    return factors if len(factors) == 2 else None
-
-
 @functools.lru_cache(maxsize=128)
 def _dft_matrix(n: int, inverse: bool) -> tuple[np.ndarray, np.ndarray]:
     """(re, im) of the [n, n] DFT matrix W[j, k] = exp(-+2πi jk / n)."""
@@ -70,24 +63,6 @@ def _twiddle(p: int, q: int, inverse: bool) -> tuple[np.ndarray, np.ndarray]:
     jj, kk = np.meshgrid(np.arange(p), np.arange(q), indexing="ij")
     ang = (2.0 if inverse else -2.0) * np.pi * (jj * kk % n) / n
     return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
-
-
-@functools.lru_cache(maxsize=16)
-def _split_stacked_consts(p: int, q: int):
-    """Host constants of the stacked two-stage real forward DFT:
-    W1[p, k1, r] and W2[q, rin, k2, rout], the (re, im) pairs stacked so
-    that each stage is one real product. The JAX package folds the
-    inter-stage twiddle into W2, which makes W2 differ by k1 and so not
-    one constant per frame; here the twiddle is applied between the
-    stages (``_twiddle``)."""
-    w1r, w1i = _dft_matrix(p, False)
-    w1 = np.stack([w1r, w1i], axis=-1)
-    w2r, w2i = _dft_matrix(q, False)
-    w2 = np.stack([
-        np.stack([w2r, w2i], axis=-1),
-        np.stack([-w2i, w2r], axis=-1),
-    ], axis=1)
-    return np.ascontiguousarray(w1), np.ascontiguousarray(w2)
 
 
 @functools.lru_cache(maxsize=256)
@@ -121,9 +96,8 @@ CUDA_BATCH = 256
 
 
 def frame_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The one contraction of the frame programs. x [F, ..., K] against a
-    constant w [K, N] -> [F, ..., N]; grouped, x [F, G, K] against
-    w [G, K, N] -> [F, G, N] (x[:, g] against w[g]).
+    """The one contraction of the frame programs: x [F, ..., K] against a
+    constant w [K, N] -> [F, ..., N].
 
     Axis 0 holds the frames. They are the batch of a ``torch.bmm``
     against ``w`` expanded with stride 0, and each frame's own rows are
@@ -131,16 +105,19 @@ def frame_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     the number of frames beside it: its bits do not depend on the size of
     its dispatch. One GEMM over frames x rows, as an einsum with ``...``
     gives, lets the BLAS choose its algorithm, and so its rounding, by
-    the number of frames. On a CUDA device the batch goes in calls of
-    ``CUDA_BATCH`` frames."""
-    if w.ndim == 3:  # stacked group-major, seen as [F, G, N]
-        return torch.stack([frame_matmul(x[:, g], w[g])
-                            for g in range(w.shape[0])]).transpose(0, 1)
+    the number of frames. On the CPU a frame of one row (a single-stage
+    transform) gets a second row of zeros: with M = 1 the BLAS's bits
+    still depend on the batch count. On a CUDA device the batch goes in
+    calls of ``CUDA_BATCH`` frames."""
     f, (k, n) = x.shape[0], w.shape
     rows = math.prod(x.shape[1:-1])
     xb = x.reshape(f, rows, k)
     if x.device.type == "cuda":
         y = _cuda_bmm(xb, w.contiguous())
+    elif rows == 1:
+        xp = xb.new_zeros((f, 2, k))
+        xp[:, :1] = xb
+        y = torch.bmm(xp, w.expand(f, k, n))[:, :1]
     else:
         y = torch.bmm(xb, w.expand(f, k, n))
     return y.reshape(x.shape[:-1] + (n,))
@@ -319,25 +296,3 @@ def irfft2(xr: torch.Tensor, xi: torch.Tensor, n: int) -> torch.Tensor:
     yr, yi = ifft2(zr, zi, half)
     # Re-interleave even/odd: out[2m] = yr[m], out[2m+1] = yi[m].
     return torch.stack([yr, yi], dim=-1).reshape(xr.shape[:-1] + (n,))
-
-
-def fft2_real_split_stacked(x: torch.Tensor, n: int):
-    """Forward DFT of a real input for two-stage sizes, stacked: one
-    product a stage, returning d[..., k1, k2, r] with natural-order bin
-    X[k2*P + k1] = d[..., k1, k2, 0] + i d[..., k1, k2, 1]. Returns
-    (d, P, Q)."""
-    factors = _split_factors(n)
-    if factors is None:
-        raise ValueError(f"fft2_real_split_stacked needs a two-stage size, "
-                         f"got {n}")
-    p, q = factors
-    if x.shape[-1] != n:
-        raise ValueError(f"expected length {n}, got {x.shape[-1]}")
-    a = _frames(x, n).reshape(-1, p, q)
-    w1, w2 = device_consts(_split_stacked_consts, (p, q), x.device)
-    tr, ti = device_consts(_twiddle, (p, q, False), x.device)
-    b = _dft_rows(a, w1.reshape(p, 2 * p)).reshape(-1, p, 2, q)  # k1 r q
-    cr, ci = complex_mul(b[:, :, 0], b[:, :, 1], tr, ti)
-    c = torch.stack([cr, ci], dim=-1).reshape(-1, p, 2 * q)     # k1 (q z)
-    d = frame_matmul(c, w2.reshape(2 * q, 2 * q))
-    return d.reshape(x.shape[:-1] + (p, q, 2)), p, q

@@ -353,7 +353,7 @@ def _launch_cuda(frames: torch.Tensor, bundle: FoldedBundle,
     dev = frames.device
     n = frames.shape[0]
     _build.check_tensor(frames, "frames", dev, (n, pl["m"]))
-    if bundle.absorbed or bundle.classic:
+    if bundle.classic:
         raise ValueError("the kernel takes the folded filter G: fold the "
                          "bundle on the CUDA device (fold_bundle)")
     g = bundle.weights

@@ -8,14 +8,11 @@ multiply collapse into Z = E*G, and a pruned half-size inverse emits the
 even/odd interleaved output block without ever computing the overlap
 region.
 
-Three frame programs, chosen by the bundle (``fold_bundle``):
+Two frame programs, chosen by the geometry (``fold_bundle`` folds the
+filter for the one its geometry takes, on every device):
 
-- **absorbed** (ratio >= 4, off the CUDA device): tiling, filter and
-  inverse stage 1 collapse into one weight tensor GW[k1, s, q]
-  (``_absorbed_stacked``); stage 2 is pruned and writes the interleave
-  directly.
-- **folded** (every even overlap; the only form on a CUDA device, where
-  the kernel takes G): Z = tile(X)*G, then ``_pruned_half_inverse``.
+- **folded** (every even overlap): Z = tile(X)*G, then
+  ``_pruned_half_inverse``; on a CUDA device the kernel runs it.
 - **classic** (odd overlap, i.e. an even tap count at ratio 1): rfft,
   periodic extension, times the spectrum, irfft, discard the overlap
   (``_upsample_frames_classic``).
@@ -197,56 +194,6 @@ def _periodic_rfft_extend(sr: torch.Tensor, si: torch.Tensor, ratio: int):
     return out_r, out_i
 
 
-def absorbed_plan(cfg: OverlapSaveConfig) -> tuple[int, int, int, int] | None:
-    """(P2, Q2, r_m, t_reps) of the tile-absorbed inverse, or None when the
-    geometry takes the folded path (ratio < 4: at 2x the weight grows to
-    h*r_m values with nothing to absorb).
-
-    The inverse split h = P2*Q2 is the power-of-two split with the fewest
-    complex multiply-adds per frame: h*r_m in stage 1 (r_m = m/Q2) plus
-    P2*Q2*kept in the pruned stage 2 (kept = Q2 - j0//P2). At 16x/80k that
-    is (512, 128): 1334 FLOP per output sample against 1519 for the
-    balanced (256, 256). The algebra needs Q2 | m (then r_m | P2 since
-    P2/r_m = ratio/2)."""
-    if cfg.overlap % 2 != 0 or cfg.ratio < 4:
-        return None
-    m = cfg.frame_in
-    h = cfg.fft_size // 2
-    j0 = cfg.overlap // 2
-    best = None
-    q2 = 8
-    while q2 <= h // 8:
-        if m % q2 == 0:
-            p2 = h // q2
-            macs = h * (m // q2) + p2 * q2 * (q2 - j0 // p2)
-            if best is None or macs < best[0]:
-                best = (macs, p2, q2)
-        q2 *= 2
-    if best is None:
-        return None
-    _, p2, q2 = best
-    r_m = m // q2
-    return p2, q2, r_m, p2 // r_m
-
-
-@functools.lru_cache(maxsize=64)
-def _absorbed_consts(m: int, h: int, q2: int):
-    """Host constants of the tile-absorbed inverse (numpy float32):
-    Wt[k1, t, s] = exp(+2pi i (t*r_m + s) k1 / P2) and
-    Wh[k1, q] = exp(+2pi i k1 q / h), as (re, im) each."""
-    p2 = h // q2
-    r_m = m // q2
-    t_reps = p2 // r_m
-    k1 = np.arange(p2)[:, None, None]
-    tt = np.arange(t_reps)[None, :, None]
-    ss = np.arange(r_m)[None, None, :]
-    ang = 2.0 * np.pi * (((tt * r_m + ss) * k1) % p2) / p2
-    kk, qq = np.meshgrid(np.arange(p2), np.arange(q2), indexing="ij")
-    ang_h = 2.0 * np.pi * ((kk * qq) % h) / h
-    return (np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32),
-            np.cos(ang_h).astype(np.float32), np.sin(ang_h).astype(np.float32))
-
-
 @functools.lru_cache(maxsize=64)
 def _stage2_matrix(q2: int, p2: int, k2_0: int):
     """Pruned stage-2 DFT matrix W_{Q2}^{+q k2}, columns k2 >= k2_0."""
@@ -255,83 +202,39 @@ def _stage2_matrix(q2: int, p2: int, k2_0: int):
     return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
 
 
-@functools.lru_cache(maxsize=64)
-def _stage2_matrix_stacked(q2: int, p2: int, k2_0: int):
-    """Stage-2 weights W2S[q, r, m, e] with the even/odd interleave and the
-    (cr, ci) pair folded in: for each frame f,
-    out[f, k, (m e)] = c[f, k, (q r)] @ W2S[(q r), (m e)] through
-    ``frame_matmul``."""
-    w2_r, w2_i = _stage2_matrix(q2, p2, k2_0)
-    a = np.stack([w2_r, w2_i], axis=-1)
-    b = np.stack([-w2_i, w2_r], axis=-1)
-    return (np.ascontiguousarray(np.stack([a, b], axis=1)),)
-
-
 @dataclasses.dataclass(frozen=True)
 class FoldedBundle:
     """The filter spectrum folded for one geometry, on one device; built
     once per filter or EQ swap by ``fold_bundle``.
 
     ``weights`` (float32, last axis = (re, im)):
-      absorbed: GW laid out [Q2, r_m, P2, 2] (the plain path only);
       folded, ratio >= 2: G = G1 + G2, [h, 2];
       folded, ratio 1: G1 and G2 stacked, [2, h, 2];
       classic (odd overlap, ``classic``): the rfft spectrum itself,
         [n_bins, 2].
     """
 
-    absorbed: bool
     weights: torch.Tensor
     classic: bool = False
-
-
-def _folded_g(spectrum, cfg: OverlapSaveConfig) -> FoldedBundle:
-    """The folded G bundle (valid at every ratio): G = G1 + G2 [h, 2], or
-    G1 and G2 stacked [2, h, 2] at ratio 1."""
-    (g1r, g1i), (g2r, g2i) = _fold_g(spectrum, cfg.fft_size)
-    if cfg.ratio == 1:
-        w = torch.stack([torch.stack([g1r, g1i], -1),
-                         torch.stack([g2r, g2i], -1)])
-    else:
-        w = torch.stack([g1r + g2r, g1i + g2i], -1)
-    return FoldedBundle(False, w.contiguous())
 
 
 def fold_bundle(spectrum, cfg: OverlapSaveConfig) -> FoldedBundle:
     """Fold an rfft filter spectrum (re, im) pair into the frame program's
     weights (the work the JAX step repeats on every dispatch,
-    totton_tpu/ops/overlap_save.py:599-616). An odd overlap's classic
-    program takes the spectrum as it is.
-
-    On a CUDA device the bundle is the folded G at every ratio: the kernel
-    reads h bins, not the 32 MB GW at 16x/80k. Elsewhere it is GW where
-    the geometry has an absorbed plan (ratio >= 4), as in the JAX
-    package."""
+    totton_tpu/ops/overlap_save.py:599-616): the folded G on every device
+    and at every ratio, G = G1 + G2 [h, 2], or G1 and G2 stacked
+    [2, h, 2] at ratio 1. An odd overlap's classic program takes the
+    spectrum as it is."""
     if cfg.overlap % 2 != 0:
         w = torch.stack([spectrum[0], spectrum[1]], -1)
-        return FoldedBundle(False, w.contiguous(), classic=True)
-    plan = (None if spectrum[0].device.type == "cuda"
-            else absorbed_plan(cfg))
-    if plan is None:
-        return _folded_g(spectrum, cfg)
+        return FoldedBundle(w.contiguous(), classic=True)
     (g1r, g1i), (g2r, g2i) = _fold_g(spectrum, cfg.fft_size)
-    p2, q2, r_m, t_reps = plan
-    dev = g1r.device
-    wt_r, wt_i, wh_r, wh_i = _fft.device_consts(
-        _absorbed_consts, (cfg.frame_in, cfg.fft_size // 2, q2), dev)
-    # Ratio >= 2: the two folded terms share E, so G = G1 + G2.
-    gr = (g1r + g2r).reshape(t_reps, r_m, q2)
-    gi = (g1i + g2i).reshape(t_reps, r_m, q2)
-    # GW0[k1, s, q] = sum_t G[(t r_m + s) Q2 + q] W_P2^{+(t r_m + s) k1}
-    gw0_r = (torch.einsum("tsq,kts->ksq", gr, wt_r)
-             - torch.einsum("tsq,kts->ksq", gi, wt_i))
-    gw0_i = (torch.einsum("tsq,kts->ksq", gr, wt_i)
-             + torch.einsum("tsq,kts->ksq", gi, wt_r))
-    # Inter-stage twiddle folded in: GW = GW0 * W_h^{+k1 q}.
-    gw_r = gw0_r * wh_r[:, None, :] - gw0_i * wh_i[:, None, :]
-    gw_i = gw0_r * wh_i[:, None, :] + gw0_i * wh_r[:, None, :]
-    gw = torch.stack([gw_r, gw_i], -1).permute(2, 1, 0, 3)  # [q, s, k, 2]
-    return FoldedBundle(True, gw.contiguous())
+    if cfg.ratio == 1:
+        w = torch.stack([torch.stack([g1r, g1i], -1),
+                         torch.stack([g2r, g2i], -1)])
+    else:  # the two folded terms share E, so G = G1 + G2
+        w = torch.stack([g1r + g2r, g1i + g2i], -1)
+    return FoldedBundle(w.contiguous())
 
 
 def fold_bundles(taps: np.ndarray, cfg: OverlapSaveConfig,
@@ -377,71 +280,20 @@ def _pruned_half_inverse(zr, zi, h: int, j0: int):
             di.transpose(-1, -2).reshape(zr.shape[0], -1), rem)
 
 
-def _absorbed_stacked(frames, gw, cfg: OverlapSaveConfig, plan):
-    """Forward DFT + inverse stage 1 (tile, filter and twiddle absorbed in
-    GW) + pruned stage 2 with the interleave absorbed, on [F, m] frames:
-    the JAX package's stacked/stacked2 frame pipeline
-    (ops/overlap_save.py:497-571). GW differs by stage-1 column q, so
-    stage 1 is a grouped product, one group a column."""
-    p2, q2, r_m, _ = plan
-    m = cfg.frame_in
-    n_frames = frames.shape[0]
-    gr, gi = gw[..., 0], gw[..., 1]  # [q, s, k]
-    m_factors = _fft._split_factors(m)
-    if m_factors is not None and q2 % m_factors[0] == 0:
-        # Stacked forward in its split layout: bin k2*P + k1 = s*Q2 + q
-        # with s = k2 // w, q = (k2 % w)*P + k1 — GW re-indexed, no
-        # transpose of the spectrum.
-        d, p_f, _ = _fft.fft2_real_split_stacked(frames, m)
-        w = q2 // p_f
-        x2 = d.reshape(n_frames, p_f, r_m, w, 2)             # [f, s, b, r]
-        x2 = x2.permute(0, 3, 1, 2, 4).reshape(n_frames, q2, 2 * r_m)
-        gbr = gr.reshape(w, p_f, r_m, p2)                    # [b, f, s, k]
-        gbi = gi.reshape(w, p_f, r_m, p2)
-        w1 = torch.stack([torch.stack([gbr, gbi], -1),
-                          torch.stack([-gbi, gbr], -1)], 3)  # [b,f,s,rin,k,x]
-        w1 = w1.reshape(q2, 2 * r_m, 2 * p2)
-    else:
-        xr, xi = _fft.fft2_real(frames, m)
-        x2 = torch.cat([xr.reshape(n_frames, r_m, q2),
-                        xi.reshape(n_frames, r_m, q2)], dim=-2)  # [2s, q]
-        x2 = x2.transpose(-1, -2)                                # [q, 2s]
-        w1 = torch.stack([torch.cat([gr, -gi], dim=1),
-                          torch.cat([gi, gr], dim=1)], -1)      # [q, 2s, k, r]
-        w1 = w1.reshape(q2, 2 * r_m, 2 * p2)
-    c = _fft.frame_matmul(x2, w1)                               # [q, (k r)]
-    c = c.reshape(n_frames, q2, p2, 2).permute(0, 2, 1, 3)      # [k, q, r]
-    j0 = cfg.overlap // 2
-    k2_0 = j0 // p2
-    rem = j0 - k2_0 * p2
-    (s2,) = _fft.device_consts(_stage2_matrix_stacked, (q2, p2, k2_0),
-                               frames.device)
-    out = _fft.frame_matmul(c.reshape(n_frames, p2, 2 * q2),
-                            s2.reshape(2 * q2, -1))             # [k, (m e)]
-    out = out.reshape(n_frames, p2, -1, 2).transpose(1, 2)      # [m, k, e]
-    out = out.reshape(n_frames, -1)
-    return out[..., 2 * rem: 2 * rem + cfg.block_size]
-
-
 def upsample_frames(frames: torch.Tensor, bundle: FoldedBundle,
                     cfg: OverlapSaveConfig) -> torch.Tensor:
     """Plain version of the frame function:
     [..., frame_in] input-rate frames -> [..., block_size] output blocks.
-    The bundle's form picks the program: absorbed (GW), folded (G, valid
-    at every ratio) or, for odd overlaps, classic, as in the JAX
-    package. Each frame's block is the same bits whatever the frames
-    beside it (``ops.fft.frame_matmul``)."""
-    plan = absorbed_plan(cfg)
-    if (bundle.classic != (cfg.overlap % 2 != 0)
-            or (bundle.absorbed and plan is None)):
+    The geometry picks the program: folded (G, valid at every ratio) or,
+    for odd overlaps, classic, as in the JAX package. Each frame's block
+    is the same bits whatever the frames beside it
+    (``ops.fft.frame_matmul``)."""
+    if bundle.classic != (cfg.overlap % 2 != 0):
         raise ValueError("bundle was folded for another geometry")
     lead = frames.shape[:-1]
-    m = cfg.frame_in
-    frames = frames.to(torch.float32).reshape(-1, m)
+    frames = frames.to(torch.float32).reshape(-1, cfg.frame_in)
     if bundle.classic:
         out = _upsample_frames_classic(frames, bundle, cfg)
-    elif bundle.absorbed:
-        out = _absorbed_stacked(frames, bundle.weights, cfg, plan)
     else:
         out = _upsample_frames_folded(frames, bundle.weights, cfg)
     return out.reshape(lead + (cfg.block_size,))

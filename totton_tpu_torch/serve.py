@@ -159,8 +159,8 @@ def _profile_to_sos(profile, sample_rate: float):
 
     Per-stream EQ is applied TIME-DOMAIN at the INPUT rate (scipy sosfilt
     with carried per-slot state): every stream gets its own EQ without
-    per-stream filter spectra (which would multiply the absorbed kernel's
-    weight tensors by the slot count). The biquads are the same RBJ
+    per-stream filter spectra (which would multiply the frame program's
+    folded filter by the slot count). The biquads are the same RBJ
     designs the spectral bake-in uses; designing them at the input rate
     instead of the output rate shifts responses only through bilinear
     warping near the input Nyquist — EQ bands live well below it.
